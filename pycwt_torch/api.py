@@ -1,0 +1,163 @@
+"""pycwt-compatible user API on PyTorch.
+
+Counterpart of ``pycwt_tpu/api.py``: the same names, signatures, defaults
+and return conventions (``cwt``, ``cwt_power``, ``icwt``).  Inputs are
+numpy/array-likes and outputs numpy arrays; the transform runs on
+``device``, which defaults to ``"cuda"``.  Without a card the call raises
+and names ``device="cpu"``: there is no silent CPU run.  ``icwt`` stays host
+numpy, as in the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import DEFAULT, CWTConfig
+from .mothers import as_mother
+from .transform import (build_scale_grid, coi_bartlett, cwt_batch,
+                        drop_reference_nan_rows)
+
+__all__ = ["cwt", "cwt_power", "icwt"]
+
+
+def _resolve_device(device) -> torch.device:
+    """``None`` means the card; asking for it without one raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to run the "
+            "transform on the CPU")
+    return device
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def cwt(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet", freqs=None,
+        config: CWTConfig = DEFAULT, device=None):
+    """Continuous wavelet transform of a 1-D signal.
+
+    Returns ``(W, sj, freqs, coi, fft, fftfreqs)`` with ``W`` of shape
+    ``(n_scales, n0)``, pow-2 padded FFTs, Bartlett-triangle COI, and the
+    normalized one-sided signal spectrum.  The reference's data-dependent
+    NaN-row drop is decided host-side from the mother's overflow criterion.
+    """
+    device = _resolve_device(device)
+    mother = as_mother(wavelet)
+    signal = np.asarray(signal)
+    n0 = len(signal)
+
+    grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother, freqs=freqs)
+    nfft = config.fft_length(n0)
+    ftfreqs_np = 2 * np.pi * np.fft.fftfreq(nfft, dt)
+    sj, out_freqs = drop_reference_nan_rows(mother, grid.sj, grid.freqs,
+                                            nfft, dt)
+
+    x = torch.as_tensor(signal[None, :], dtype=config.real_dtype, device=device)
+    W, signal_ft = cwt_batch(x, torch.as_tensor(sj, device=device), dt,
+                             mother=mother, nfft=nfft, config=config)
+    W = _host(W[0])
+    signal_ft = _host(signal_ft[0])
+
+    coi = coi_bartlett(n0, dt, mother)
+    return (
+        W,
+        sj,
+        out_freqs,
+        coi,
+        signal_ft[1 : nfft // 2] / nfft ** 0.5,
+        ftfreqs_np[1 : nfft // 2] / (2 * np.pi),
+    )
+
+
+def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
+                      freqs=None, config: CWTConfig = DEFAULT,
+                      output: str = "planes", device=None):
+    """The :func:`cwt` pipeline with planar output through
+    ``fused_cwt_planar`` (same grid/COI/NaN-row semantics as :func:`cwt`).
+    ``output="planes"`` returns ``(wr, wi, sj, freqs, coi)`` with each plane
+    ``(n_scales, n0)`` f32; ``output="power"`` returns ``(power, sj, freqs,
+    coi)`` with |W|² written by the kernel's epilogue.  Needs a pow-2
+    ``nfft``."""
+    from .ops.fused_cwt import fused_cwt_planar
+    from .ops.mxu_dft import fft_of_real_planar
+
+    device = _resolve_device(device)
+    mother = as_mother(wavelet)
+    signal = np.asarray(signal)
+    n0 = len(signal)
+
+    grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother, freqs=freqs)
+    nfft = config.fft_length(n0)
+    sj, out_freqs = drop_reference_nan_rows(mother, grid.sj, grid.freqs,
+                                            nfft, dt)
+    coi = coi_bartlett(n0, dt, mother)
+
+    x = torch.as_tensor(signal, dtype=torch.float32, device=device)
+    sr, si = fft_of_real_planar(x, nfft)
+    out = fused_cwt_planar(
+        sr, si, torch.as_tensor(sj, dtype=torch.float32, device=device),
+        mother=mother, nfft=nfft, dt=float(dt), precision=config.precision,
+        output=output)
+    if output == "power":
+        return _host(out[:, :n0]), sj, out_freqs, coi
+    wr, wi = out
+    return _host(wr[:, :n0]), _host(wi[:, :n0]), sj, out_freqs, coi
+
+
+def cwt_power(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
+              freqs=None, config: CWTConfig = DEFAULT, device=None):
+    """Wavelet power ``|W|²``, same grid/COI/NaN-row semantics as
+    :func:`cwt`.  Under engine ``"planar"`` (the CUDA default) and a pow-2
+    ``nfft`` the kernels write |W|² in their epilogue, so W never leaves
+    the card.
+
+    Returns ``(power, sj, freqs, coi)`` with ``power`` of shape
+    ``(n_scales, n0)``.
+    """
+    from .ops.fft import resolve_engine
+    from .ops.mxu_dft import supported_n
+
+    device = _resolve_device(device)
+    signal = np.asarray(signal)
+    nfft = config.fft_length(len(signal))
+    engine = resolve_engine(config.engine, device)
+    if engine == "planar" and supported_n(nfft):
+        return _cwt_planar_parts(signal, dt, dj=dj, s0=s0, J=J,
+                                 wavelet=wavelet, freqs=freqs, config=config,
+                                 output="power", device=device)
+    W, sj, out_freqs, coi, _, _ = cwt(signal, dt, dj=dj, s0=s0, J=J,
+                                      wavelet=wavelet, freqs=freqs,
+                                      config=config, device=device)
+    return np.abs(W) ** 2, sj, out_freqs, coi
+
+
+def icwt(W, sj, dt, dj=1 / 12, wavelet="morlet"):
+    """Inverse continuous wavelet transform, TC98 eq. 11, on the host.
+
+    Replicates the reference's orientation auto-detection and summation,
+    including the ``Warning`` raised on a shape mismatch.
+    """
+    mother = as_mother(wavelet)
+    W = np.asarray(W)
+    sj = np.asarray(sj)
+
+    a, b = W.shape
+    c = sj.size
+    if a == c:
+        sj_mat = (np.ones([b, 1]) * sj).transpose()
+    elif b == c:
+        sj_mat = np.ones([a, 1]) * sj
+    else:
+        raise Warning("Input array dimensions do not match.")
+
+    psi0 = mother.psi0()
+    if isinstance(psi0, complex) and psi0.imag == 0:
+        psi0 = psi0.real
+    return (
+        dj
+        * np.sqrt(dt)
+        / (mother.cdelta * psi0)
+        * (np.real(W) / np.sqrt(sj_mat)).sum(axis=0)
+    )

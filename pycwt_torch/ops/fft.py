@@ -1,0 +1,85 @@
+"""Engine-dispatched FFT primitives — one policy for every FFT consumer.
+
+Counterpart of ``pycwt_tpu/ops/fft.py`` with the same four engine names:
+
+* ``"xla"`` and ``"mxu"`` — ``torch.fft`` (cuFFT on the card);
+* ``"pallas"`` and ``"planar"`` — the forward CWT runs the fused CUDA
+  kernels (``ops/fused_cwt.py``) for a supported ``nfft`` on a CUDA tensor;
+  every auxiliary FFT rides ``torch.fft``.
+
+A non-pow-2 length under a non-``"xla"`` engine goes to ``torch.fft`` with
+the JAX package's fallback warning.
+
+Resolution order for ``engine=None``: the ``PYCWT_TPU_ENGINE`` environment
+variable, then a per-device default: ``"planar"`` for CUDA tensors (the
+choice the JAX package made on the platform its numbers came from) and
+``"xla"`` on the CPU.  Callers holding a :class:`~pycwt_torch.config.CWTConfig`
+pass ``config.engine`` as the explicit argument first.
+"""
+from __future__ import annotations
+
+import os
+import warnings
+
+import torch
+
+from . import mxu_dft
+
+__all__ = ["resolve_engine", "fft", "ifft", "fft_of_real_full"]
+
+_VALID = ("xla", "mxu", "pallas", "planar")
+
+
+def _device_default(device) -> str:
+    if device is not None and torch.device(device).type == "cuda":
+        return "planar"
+    return "xla"
+
+
+def resolve_engine(engine: str | None = None, device=None) -> str:
+    """Resolve an engine name: explicit argument → ``PYCWT_TPU_ENGINE`` →
+    per-device default (CUDA → "planar", else "xla")."""
+    if engine is None:
+        engine = os.environ.get("PYCWT_TPU_ENGINE") or _device_default(device)
+    if engine not in _VALID:
+        raise ValueError(f"engine must be one of {_VALID}, got {engine!r}")
+    return engine
+
+
+def _warn_fallback(engine: str, n: int) -> None:
+    """An explicitly requested non-xla engine meets a non-pow-2 length and
+    runs ``torch.fft`` instead of its own path: say so."""
+    warnings.warn(
+        f"engine={engine!r} supports only power-of-two FFT lengths; length "
+        f"{n} runs torch.fft instead. Pad to a power of two "
+        "(CWTConfig(pad_pow2=True)) to stay on the fused-kernel path.",
+        stacklevel=3,
+    )
+
+
+def _check_engine(x: torch.Tensor, n: int, engine: str | None) -> None:
+    engine = resolve_engine(engine, x.device)
+    if engine != "xla" and not mxu_dft.supported_n(n):
+        _warn_fallback(engine, n)
+
+
+def fft(x: torch.Tensor, n: int | None = None, *, engine: str | None = None):
+    """Complex FFT along the last axis (matches ``numpy.fft.fft(x, n)``)."""
+    _check_engine(x, x.shape[-1] if n is None else n, engine)
+    return torch.fft.fft(x, n=n, dim=-1)
+
+
+def ifft(x: torch.Tensor, n: int | None = None, *, engine: str | None = None):
+    """Inverse complex FFT along the last axis (matches ``numpy.fft.ifft``)."""
+    _check_engine(x, x.shape[-1] if n is None else n, engine)
+    return torch.fft.ifft(x, n=n, dim=-1).resolve_conj()
+
+
+def fft_of_real_full(x: torch.Tensor, nfft: int, *, engine: str | None = None):
+    """Full complex spectrum of a real signal zero-padded to ``nfft``: an
+    rFFT plus its Hermitian mirror."""
+    _check_engine(x, nfft, engine)
+    half = torch.fft.rfft(x, n=nfft, dim=-1)
+    # bins nfft-1 .. nfft//2+1 mirror bins 1 .. (nfft-1)//2
+    mirror = torch.conj(half[..., 1 : (nfft + 1) // 2].flip(-1))
+    return torch.cat([half, mirror], dim=-1)

@@ -1,0 +1,367 @@
+"""Fused filter bank × four-step inverse FFT: the forward CWT's hot loop.
+
+Counterpart of ``pycwt_tpu/ops/pallas_fft.py``.  Its two Pallas TPU kernels
+(``_make_kernel_a`` and ``_make_kernel_b``) become the hand-written CUDA
+kernels ``cwt_stage_a`` and ``cwt_stage_b`` in ``csrc/fused_cwt.cu``,
+compiled for Hopper at first use (``ops/_build.py``).  With N = R2·R1,
+k = b·R1 + a and t = c + R2·d:
+
+    stage A:  T[a, c] = e^{2πi·ac/N} Σ_b X[b·R1 + a]·H̄_s[b·R1 + a] e^{2πi·bc/R2}
+    stage B:  W[c + R2·d] = (1/N) Σ_a T[a, c] e^{2πi·ad/R1}
+
+Dispatch: a CPU tensor runs the plain PyTorch version
+(:func:`_fused_cwt_planar_reference`, the bank × X then ``torch.fft.ifft``);
+a CUDA tensor runs the kernels, or the call raises; any other device raises.
+The kernels' gradient replays the plain version (:class:`_FusedCWT`), as the
+JAX package's ``_with_xla_vjp`` does.  Each kernel wrapper also has its own
+plain version (:func:`_stage_a_reference`, :func:`_stage_b_reference`) with
+the kernel's exact layout, so the four-step split is checked on the CPU.
+"""
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from ..config import _PRECISIONS
+from ..mothers import DOG, Morlet, Mother, Paul
+from .filterbank import angular_frequencies
+
+__all__ = ["fused_cwt", "fused_cwt_planar", "supported_nfft",
+           "KERNEL_LAUNCHES", "stage_a", "stage_b"]
+
+#: Launches of each CUDA kernel, counted by its wrapper where it launches.
+KERNEL_LAUNCHES = {"cwt_stage_a": 0, "cwt_stage_b": 0}
+
+#: epilogue -> the kernel's mode id (enum Mode in csrc/fused_cwt.cu)
+_MODES = {"planes": 0, "power": 1, "power_sum": 2}
+
+#: Shared memory a block aims to stay under (two blocks fit on one SM), and
+#: the most a Hopper block may take (227 KB, less the 1 KB static buffer).
+_SMEM_TARGET = 100 * 1024
+_SMEM_MAX = 232448 - 1024
+_MAX_COLS = 16
+
+
+def supported_nfft(nfft: int) -> bool:
+    """Pow-2 lengths ≥ 2^8 — every one of them runs the two kernels."""
+    return nfft >= (1 << 8) and (1 << (nfft.bit_length() - 1)) == nfft
+
+
+def _nfft_factors(nfft: int) -> tuple[int, int]:
+    """(R1, R2) with N = R2·R1 and R1 = 2^⌊log2 N / 2⌋."""
+    p = nfft.bit_length() - 1
+    R1 = 1 << (p // 2)
+    return R1, nfft // R1
+
+
+def _smem_bytes(R: int, cols: int) -> int:
+    """Dynamic shared memory of one block (same formula as the CUDA source):
+    planar columns at leading dimension cols + 1, plus the twiddle table."""
+    return 4 * (2 * R * (cols + 1) + R)
+
+
+def _tile_cols(R: int, n_cols: int) -> int:
+    """Columns per block for R-point column FFTs: the widest pow-2 tile up to
+    16 that stays under the shared-memory target, else one column if that
+    fits a Hopper block at all."""
+    cols = min(_MAX_COLS, n_cols)
+    while cols > 1 and _smem_bytes(R, cols) > _SMEM_TARGET:
+        cols //= 2
+    if _smem_bytes(R, cols) > _SMEM_MAX:
+        raise ValueError(
+            f"a {R}-point column needs {_smem_bytes(R, 1)} bytes of shared "
+            f"memory, more than a Hopper block has ({_SMEM_MAX})")
+    return cols
+
+
+def _is_analytic(mother: Mother) -> bool:
+    return bool(getattr(mother, "analytic_negligible_negative", lambda: False)())
+
+
+def _mother_args(mother: Mother):
+    """(id, f0, m) of the kernel's envelope switch."""
+    if isinstance(mother, Morlet):
+        return 0, float(mother.f0), 0
+    if isinstance(mother, Paul):
+        return 1, 0.0, int(mother.m)
+    if isinstance(mother, DOG):
+        return 2, 0.0, int(mother.m)
+    raise TypeError(f"no CUDA envelope for mother {mother!r}")
+
+
+def _check_device(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(
+            f"fused CWT runs on 'cpu' or 'cuda' tensors, got {t.device}")
+    return t.device.type
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions
+# --------------------------------------------------------------------------
+
+def _fused_cwt_planar_reference(sr, si, scales, *, mother: Mother, nfft: int,
+                                dt: float, output: str = "planes"):
+    """The (S, nfft) bank × X, then ``torch.fft.ifft``, in the dtype given;
+    differentiable.  ``sr``/``si`` are ``(..., n_in)`` with n_in = nfft or
+    (analytic mothers) nfft/2, whose missing upper half is zero."""
+    n_in = sr.shape[-1]
+    if n_in < nfft:
+        sr = torch.nn.functional.pad(sr, (0, nfft - n_in))
+        si = torch.nn.functional.pad(si, (0, nfft - n_in))
+    ftf = angular_frequencies(nfft, dt, sr.dtype, sr.device)
+    scales = scales.to(sr.dtype)
+    norm = torch.sqrt(2 * math.pi * scales / dt)
+    env = mother.psi_ft_envelope(scales[:, None] * ftf[None, :])
+    cbar = complex(mother.psi_ft_const()).conjugate()
+    br = (norm[:, None] * env) * cbar.real
+    bi = (norm[:, None] * env) * cbar.imag
+    xr = sr[..., None, :]
+    xi = si[..., None, :]
+    W = torch.fft.ifft(torch.complex(xr * br - xi * bi, xr * bi + xi * br),
+                       dim=-1)
+    return _epilogue(W.real, W.imag, output)
+
+
+def _epilogue(wr, wi, output: str):
+    if output == "planes":
+        return wr, wi
+    power = wr * wr + wi * wi
+    return power if output == "power" else power.sum(dim=-1)
+
+
+def _stage_a_reference(sr, si, scales, *, mother: Mother, nfft: int,
+                       dt: float):
+    """Stage A in PyTorch with the kernel's layout: ``sr``/``si`` are
+    ``(B, n_in)``; returns planar T of shape ``(B·S, R1, R2)``.  Analytic
+    mothers read only rows b < R2/2 (k < N/2), as the kernel does."""
+    R1, R2 = _nfft_factors(nfft)
+    B, n_in = sr.shape
+    rows = R2 // 2 if _is_analytic(mother) else R2
+    x = torch.complex(sr, si).reshape(B, n_in // R1, R1)[:, :rows]
+    dev, rdt = sr.device, sr.dtype
+    k = (torch.arange(rows, device=dev)[:, None] * R1
+         + torch.arange(R1, device=dev)[None, :])
+    k = torch.where(k >= nfft // 2, k - nfft, k).to(rdt)
+    omega = (2.0 * math.pi / (nfft * dt)) * k
+    scales = scales.to(rdt)
+    env = mother.psi_ft_envelope(scales[:, None, None] * omega[None])
+    norm = torch.sqrt(2.0 * math.pi * scales / dt)[:, None, None]
+    cbar = complex(mother.psi_ft_const()).conjugate()
+    h = torch.complex(norm * env * cbar.real, norm * env * cbar.imag)
+    Z = torch.fft.ifft(x[:, None] * h[None], n=R2, dim=-2, norm="forward")
+    ac = (torch.arange(R2, dtype=torch.float64, device=dev)[:, None]
+          * torch.arange(R1, dtype=torch.float64, device=dev)[None, :])
+    tw = torch.polar(torch.ones_like(ac), (2 * math.pi / nfft) * ac)
+    T = (Z * tw.to(Z.dtype)).transpose(-1, -2).reshape(-1, R1, R2)
+    return T.real.contiguous(), T.imag.contiguous()
+
+
+def _stage_b_reference(tr, ti, *, nfft: int, output: str):
+    """Stage B in PyTorch: T ``(rows, R1, R2)`` → W planes ``(rows, N)`` ×2,
+    |W|² ``(rows, N)``, or Σ_t |W|² ``(rows,)``."""
+    M = torch.fft.ifft(torch.complex(tr, ti), dim=-2, norm="forward") / nfft
+    W = M.reshape(tr.shape[0], nfft)
+    return _epilogue(W.real, W.imag, output)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+def _check_grid(blocks: int) -> None:
+    if blocks >= 1 << 31:
+        raise ValueError(f"{blocks} blocks exceed a CUDA grid; split the batch")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def stage_a(sr, si, scales, *, mother: Mother, nfft: int, dt: float):
+    """Kernel A: ``(B, n_in)`` planar spectra and ``(S,)`` scales → planar T
+    ``(B·S, R1, R2)`` f32.  CPU tensors run :func:`_stage_a_reference`."""
+    if _check_device(sr) == "cpu":
+        return _stage_a_reference(sr, si, scales, mother=mother, nfft=nfft,
+                                  dt=dt)
+    from ._build import library
+
+    R1, R2 = _nfft_factors(nfft)
+    B, n_in = sr.shape
+    if n_in not in (nfft, nfft // 2) or si.shape != sr.shape or scales.ndim != 1:
+        raise ValueError(f"spectra {tuple(sr.shape)}/{tuple(si.shape)} and scales "
+                         f"{tuple(scales.shape)} do not fit nfft={nfft}")
+    sr = sr.to(torch.float32).contiguous()
+    si = si.to(device=sr.device, dtype=torch.float32).contiguous()
+    scales = scales.to(device=sr.device, dtype=torch.float32).contiguous()
+    S = scales.shape[0]
+    cols = _tile_cols(R2, R1)
+    _check_grid(B * S * (R1 // cols))
+    rows = R2 // 2 if _is_analytic(mother) else R2
+    kind, f0, m = _mother_args(mother)
+    cbar = complex(mother.psi_ft_const()).conjugate()
+    tr = torch.empty((B * S, R1, R2), dtype=torch.float32, device=sr.device)
+    ti = torch.empty_like(tr)
+    with torch.cuda.device(sr.device):
+        err = library("fused_cwt").cwt_stage_a(
+            sr.data_ptr(), si.data_ptr(), n_in, scales.data_ptr(),
+            tr.data_ptr(), ti.data_ptr(),
+            B, S, R1, R2, rows, cols, kind, f0, m, cbar.real, cbar.imag,
+            float(dt), 2.0 * math.pi / (nfft * dt),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "cwt_stage_a")
+    KERNEL_LAUNCHES["cwt_stage_a"] += 1
+    return tr, ti
+
+
+def stage_b(tr, ti, *, nfft: int, output: str):
+    """Kernel B: planar T ``(rows, R1, R2)`` → W planes, |W|² or Σ_t |W|²
+    (see :func:`_stage_b_reference`).  CPU tensors run the plain version."""
+    if _check_device(tr) == "cpu":
+        return _stage_b_reference(tr, ti, nfft=nfft, output=output)
+    from ._build import library
+
+    R1, R2 = _nfft_factors(nfft)
+    rows = tr.shape[0]
+    if (tuple(tr.shape) != (rows, R1, R2) or ti.shape != tr.shape
+            or tr.dtype != torch.float32 or ti.dtype != torch.float32
+            or ti.device != tr.device):
+        raise ValueError(f"T must be two f32 ({rows}, {R1}, {R2}) planes on one "
+                         f"device, got {tr.dtype} {tuple(tr.shape)} and "
+                         f"{ti.dtype} {tuple(ti.shape)}")
+    tr = tr.contiguous()
+    ti = ti.contiguous()
+    cols = _tile_cols(R1, R2)
+    _check_grid(rows * (R2 // cols))
+    kw = dict(dtype=torch.float32, device=tr.device)
+    if output == "planes":
+        out0, out1 = torch.empty((rows, nfft), **kw), torch.empty((rows, nfft), **kw)
+    elif output == "power":
+        out0, out1 = torch.empty((rows, nfft), **kw), None
+    else:
+        out0, out1 = torch.empty((rows, R2 // cols), **kw), torch.empty((rows,), **kw)
+    with torch.cuda.device(tr.device):
+        err = library("fused_cwt").cwt_stage_b(
+            tr.data_ptr(), ti.data_ptr(), out0.data_ptr(),
+            None if out1 is None else out1.data_ptr(),
+            rows, R1, R2, cols, _MODES[output], 1.0 / nfft,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "cwt_stage_b")
+    KERNEL_LAUNCHES["cwt_stage_b"] += 1
+    if output == "planes":
+        return out0, out1
+    return out0 if output == "power" else out1
+
+
+class _FusedCWT(torch.autograd.Function):
+    """Forward: the two CUDA kernels.  Backward: the gradient of the plain
+    version on the saved inputs (there is no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, sr, si, scales, mother, nfft, dt, output):
+        ctx.save_for_backward(sr, si, scales)
+        ctx.params = (mother, nfft, dt, output)
+        T = stage_a(sr, si, scales, mother=mother, nfft=nfft, dt=dt)
+        out = stage_b(*T, nfft=nfft, output=output)
+        # the plain version's shapes: (B, S, nfft) or (B, S)
+        shape = (sr.shape[0], scales.shape[0]) + ((nfft,) if output != "power_sum" else ())
+        if output == "planes":
+            return tuple(o.reshape(shape) for o in out)
+        return out.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mother, nfft, dt, output = ctx.params
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = _fused_cwt_planar_reference(*inputs, mother=mother,
+                                              nfft=nfft, dt=dt, output=output)
+            outs = out if isinstance(out, tuple) else (out,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            got = torch.autograd.grad([o for o, _ in pairs],
+                                      wanted, [g for _, g in pairs],
+                                      allow_unused=True) if wanted else ()
+        got = iter(got)
+        result = [next(got) if t.requires_grad else None for t in inputs]
+        return (*result, None, None, None, None)
+
+
+def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
+                     dt: float, power_only: bool = False,
+                     precision: str = "highest",
+                     small_kernel: bool | None = None,
+                     output: str | None = None):
+    """Planar fused CWT of one spectrum ``(n_in,)`` or a batch ``(B, n_in)``.
+
+    ``n_in`` is ``nfft`` (full spectrum) or, for analytic mothers, ``nfft/2``
+    (``fft_of_real_planar(half=True)``).  ``output`` selects the epilogue:
+    ``"planes"`` (default) returns ``(wr, wi)`` each ``(..., S, nfft)``;
+    ``"power"`` returns |W|² ``(..., S, nfft)``; ``"power_sum"`` returns
+    Σ_t |W|² ``(..., S)`` (the legacy ``power_only=True``).  All three
+    ``precision`` tiers currently run the same f32 kernels.
+
+    ``small_kernel=True`` (or ``PYCWT_TPU_SMALL_KERNEL=1``) asks for the JAX
+    package's direct-DFT kernel, which is not ported yet: on a CUDA tensor it
+    raises ``NotImplementedError``.
+    """
+    if small_kernel is None:
+        small_kernel = os.environ.get("PYCWT_TPU_SMALL_KERNEL") == "1"
+    if output is None:
+        output = "power_sum" if power_only else "planes"
+    elif power_only and output != "power_sum":
+        raise ValueError(
+            f"conflicting epilogue selection: power_only=True means "
+            f"output='power_sum' but output={output!r} was passed — drop "
+            f"power_only (deprecated) and pass output= alone")
+    if output not in _MODES:
+        raise ValueError(f"output must be planes|power|power_sum, got {output!r}")
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
+    if not supported_nfft(nfft):
+        raise ValueError(f"fused kernel needs pow-2 nfft >= 256, got {nfft}")
+    analytic = _is_analytic(mother)
+    n_in = sig_r.shape[-1]
+    if n_in == nfft // 2 and not analytic:
+        raise ValueError(
+            "half-spectrum input requires an analytic mother "
+            f"({mother.name} reads negative-frequency bins)")
+    if n_in != nfft and n_in != nfft // 2:
+        raise ValueError(
+            f"spectrum length {n_in} incompatible with nfft={nfft} "
+            f"(half-spectrum input needs an analytic mother)")
+    scales = torch.as_tensor(scales, device=sig_r.device)
+
+    if _check_device(sig_r) == "cpu":
+        return _fused_cwt_planar_reference(sig_r, sig_i, scales, mother=mother,
+                                           nfft=nfft, dt=float(dt), output=output)
+    if small_kernel:
+        raise NotImplementedError(
+            "small_kernel=True: the direct-DFT kernel (_make_kernel_direct) is "
+            "not ported to CUDA yet — ROADMAP.md queue 2")
+    lead = sig_r.shape[:-1]
+    out = _FusedCWT.apply(sig_r.reshape(-1, n_in), sig_i.reshape(-1, n_in),
+                          scales, mother, nfft, float(dt), output)
+    if output == "planes":
+        return tuple(o.reshape(*lead, *o.shape[1:]) for o in out)
+    return out.reshape(*lead, *out.shape[1:])
+
+
+def fused_cwt(signal_ft, scales, *, mother: Mother, nfft: int, dt: float,
+              power_only: bool = False, precision: str = "highest",
+              small_kernel: bool | None = None):
+    """Complex-input convenience wrapper over :func:`fused_cwt_planar`:
+    returns complex W ``(..., S, nfft)`` (un-trimmed), or Σ_t |W|² when
+    ``power_only``."""
+    out = fused_cwt_planar(signal_ft.real.to(torch.float32),
+                           signal_ft.imag.to(torch.float32), scales,
+                           mother=mother, nfft=nfft, dt=dt,
+                           power_only=power_only, precision=precision,
+                           small_kernel=small_kernel)
+    if power_only:
+        return out
+    return torch.complex(*out)

@@ -1,0 +1,182 @@
+"""Batched forward / inverse continuous wavelet transform.
+
+Counterpart of ``pycwt_tpu/transform.py``:
+
+    (B, n0) real ──rFFT+mirror──► (B, nfft) spectrum
+                 ──filter bank──► (B, S, nfft) product spectrum
+                 ──batched iFFT─► (B, S, nfft) ──trim──► (B, S, n0) W
+
+On a CUDA tensor under engine ``"pallas"``/``"planar"`` (the CUDA default)
+the filter bank and the iFFT run as the fused CUDA kernels
+(``ops/fused_cwt.py``).  Scale grids, NaN-row drops and the COI are host
+numpy float64, decided before any device work.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .config import DEFAULT, CWTConfig, round_half_even
+from .mothers import Mother, as_mother
+from .ops.fft import fft_of_real_full, ifft as engine_ifft, resolve_engine
+from .ops.filterbank import angular_frequencies, apply_filter_bank
+
+__all__ = [
+    "ScaleGrid",
+    "build_scale_grid",
+    "drop_reference_nan_rows",
+    "cwt_batch",
+    "icwt_batch",
+    "icwt_planar",
+    "coi_bartlett",
+]
+
+
+class ScaleGrid(NamedTuple):
+    """Host-side scale grid (numpy float64)."""
+
+    sj: np.ndarray      # (S,) wavelet scales  s0·2^(j·dj)
+    freqs: np.ndarray   # (S,) Fourier-equivalent frequencies 1/(λ·s)
+    dj: float
+    s0: float
+    J: int
+
+
+def build_scale_grid(
+    n0: int,
+    dt: float,
+    dj: float = 1 / 12,
+    s0: float = -1,
+    J: int = -1,
+    mother: Mother | str = "morlet",
+    freqs: np.ndarray | None = None,
+) -> ScaleGrid:
+    """Scale grid per the TC98 defaults: ``s0 = 2·dt/λ`` and
+    ``J = round(log2(n0·dt/s0)/dj)`` when unset; a custom ``freqs`` vector
+    instead derives scales as ``1/(λ·freqs)``."""
+    mother = as_mother(mother)
+    flambda = mother.flambda()
+    if freqs is None:
+        if s0 == -1:
+            s0 = 2 * dt / flambda
+        if J == -1:
+            J = int(round_half_even(np.log2(n0 * dt / s0) / dj))
+        sj = s0 * 2.0 ** (np.arange(0, J + 1, dtype=np.float64) * dj)
+        freqs = 1.0 / (flambda * sj)
+    else:
+        freqs = np.asarray(freqs, dtype=np.float64)
+        sj = 1.0 / (flambda * freqs)
+        J = len(sj) - 1
+        s0 = float(sj[0]) if len(sj) else -1.0
+    return ScaleGrid(sj=np.asarray(sj, dtype=np.float64), freqs=freqs, dj=dj,
+                     s0=float(s0), J=int(J))
+
+
+def drop_reference_nan_rows(mother: Mother, sj: np.ndarray, freqs: np.ndarray,
+                            nfft: int, dt: float):
+    """Drop the scale rows that the reference's naive f64 filter formula
+    would fill with non-finite values — keeping every row when all are bad,
+    as the reference does.  Returns the (possibly filtered) ``(sj, freqs)``."""
+    ftfreqs_np = 2 * np.pi * np.fft.fftfreq(nfft, dt)
+    bad = mother.reference_nan_rows(sj, ftfreqs_np)
+    if (~bad).any():
+        return sj[~bad], freqs[~bad]
+    return sj, freqs
+
+
+def coi_bartlett(n0: int, dt: float, mother: Mother) -> np.ndarray:
+    """Cone of influence as Fourier periods: ``λ·coi·dt·(n0/2 − |t − (n0−1)/2|)``."""
+    tri = n0 / 2 - np.abs(np.arange(0, n0, dtype=np.float64) - (n0 - 1) / 2)
+    return mother.flambda() * mother.coi() * dt * tri
+
+
+def cwt_batch(
+    signals,
+    scales,
+    dt: float,
+    *,
+    mother: Mother,
+    nfft: int,
+    config: CWTConfig = DEFAULT,
+    engine: str | None = None,
+):
+    """Batched forward CWT on the signals' device.
+
+    Parameters
+    ----------
+    signals: ``(B, n0)`` real tensor (numpy input lands on the CPU).
+    scales: ``(S,)`` wavelet scales.
+    dt: sampling interval.
+    mother: mother-wavelet dataclass.
+    nfft: FFT length (pad-to-pow-2 under the default policy).
+    config: numeric policy; ``engine`` overrides ``config.engine``.
+
+    Returns
+    -------
+    W: ``(B, S, n0)`` complex wavelet transform.
+    signal_ft: ``(B, nfft)`` complex spectrum of the zero-padded signals.
+    """
+    signals = torch.as_tensor(signals)
+    device = signals.device
+    engine = resolve_engine(engine if engine is not None else config.engine,
+                            device)
+    if engine == "planar":
+        engine = "pallas"
+    rdt = config.real_dtype
+    cdt = config.complex_dtype
+    signals = signals.to(rdt)
+    if signals.ndim != 2:
+        raise ValueError(f"signals must be (B, n0), got {tuple(signals.shape)}")
+    scales = torch.as_tensor(scales, dtype=rdt, device=device)
+    n0 = signals.shape[-1]
+
+    signal_ft = fft_of_real_full(signals, nfft, engine=engine).to(cdt)
+
+    if engine == "pallas":
+        from .ops.fused_cwt import fused_cwt, supported_nfft
+
+        # The kernels serve pow-2 nfft >= 256 on CUDA tensors; every other
+        # case runs torch.fft below (non-pow-2 lengths already warned).
+        if supported_nfft(nfft) and device.type == "cuda":
+            W_full = fused_cwt(signal_ft.to(torch.complex64),
+                               scales.to(torch.float32), mother=mother,
+                               nfft=nfft, dt=float(dt),
+                               precision=config.precision)
+            return W_full[..., :n0], signal_ft
+        engine = "mxu"
+
+    ftfreqs = angular_frequencies(nfft, dt, rdt, device)
+    prod = apply_filter_bank(signal_ft, mother, scales, ftfreqs, dt)
+    W = engine_ifft(prod, engine=engine)[..., :n0]
+    return W, signal_ft
+
+
+def _icwt_norm(mother: Mother, dt: float, dj: float) -> float:
+    psi0 = mother.psi0()
+    if isinstance(psi0, complex) and psi0.imag == 0:
+        psi0 = psi0.real
+    return dj * math.sqrt(dt) / (mother.cdelta * psi0)
+
+
+def icwt_batch(W: torch.Tensor, scales, dt: float, dj: float, *,
+               mother: Mother) -> torch.Tensor:
+    """Batched inverse CWT, TC98 eq. 11:
+
+        x̂[t] = dj·√dt / (C_δ·ψ(0)) · Σ_s Re(W[s, t]) / √s
+
+    ``W`` is ``(..., S, n0)`` with the scale axis second-to-last."""
+    return icwt_planar(W.real, scales, dt, dj, mother=mother)
+
+
+def icwt_planar(wr: torch.Tensor, scales, dt: float, dj: float, *,
+                mother: Mother) -> torch.Tensor:
+    """:func:`icwt_batch` on the planar real part alone (TC98 eq. 11 reads
+    only Re(W)); ``wr`` is ``(..., S, n)``, the result ``(..., n)`` on
+    ``wr``'s device."""
+    wr = torch.as_tensor(wr)
+    scales = torch.as_tensor(scales, dtype=wr.dtype, device=wr.device)
+    norm = _icwt_norm(mother, dt, dj)
+    return norm * torch.sum(wr / torch.sqrt(scales)[..., :, None], dim=-2)
