@@ -1,18 +1,28 @@
 """Smoke run of the PyTorch port on one NVIDIA card: build, check, time.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It builds the port's CUDA kernels from ``pycwt_torch/csrc/``, holds each
-one against its plain PyTorch version on the card, drives the forward-CWT
-main path through the entry points a user calls (``cwt``, ``cwt_power``,
-and the 2^20-point, 64-scale ``fft_of_real_planar`` → ``fused_cwt_planar``
-pipeline), checks the results against the NINO3 golden and the plain
-version, times the kernels with CUDA events, and prints one JSON line of
-kernel numbers and, last, one JSON ``ok`` line.  Any failure raises: the
-exit code is then non-zero and no ``ok`` line is printed.  Without a CUDA
-device it exits non-zero at once.
+It builds the port's CUDA kernels from ``pycwt_torch/csrc/`` (one ``nvcc``
+per source, started together) and holds each one against its plain PyTorch
+version on the card.  It then drives two paths through the entry points a
+user calls, each with the launch counters set to 0 just before and read
+just after:
+
+* the forward-CWT main path (``cwt``, ``cwt_power``, and the 2^20-point,
+  64-scale ``fft_of_real_planar`` → ``fused_cwt_planar`` pipeline) on
+  ``cwt_stage_a`` + ``cwt_stage_b``;
+* the statistics / XWT / WCT path (``xwt``, ``xwt_planar``,
+  ``wct(sig=False)``, ``cwt_analysis``, ``xwt_analysis``, ``wct_analysis``)
+  on the default route and on the ``PYCWT_TPU_SMALL_KERNEL=1`` route through
+  ``cwt_direct``, against the goldens, and a 4,000-point WCT pair on both.
+
+It times the kernels with CUDA events and prints one JSON line of kernel
+numbers and, last, one JSON ``ok`` line.  Any failure raises: the exit code
+is then non-zero and no ``ok`` line is printed.  Without a CUDA device it
+exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -30,8 +40,14 @@ PEAK_F32 = 67e12
 #: precision tier -> bound relative to max|W| (tests/test_pallas.py:33, :198, :276)
 TIER_BOUND = {"highest": 1e-5, "high": 2e-4, "fast": 2e-2}
 SIZES = [1 << p for p in (8, 10, 13, 14, 16, 20)]
+DIRECT_SIZES = [1 << p for p in (8, 10, 12)]
 OUTPUTS = ("planes", "power", "power_sum")
 KERNEL_SOURCE = "pycwt_torch/csrc/fused_cwt.cu"
+DIRECT_SOURCE = "pycwt_torch/csrc/direct_cwt.cu"
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+#: f32 bounds of the slice's path against the f64 goldens (rel_err):
+#: tests/test_tpu_chip.py:43, tests/test_engines.py:170, :156
+XWT_BOUND, WCT_BOUND, CWT_BOUND = 1.9e-3, 1e-3, 5e-3
 
 
 def log(*args):
@@ -68,6 +84,19 @@ def time_ms(fn, runs=11, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _reset_counts():
+    from pycwt_torch.ops import fused_cwt as fc
+
+    for name in fc.KERNEL_LAUNCHES:
+        fc.KERNEL_LAUNCHES[name] = 0
+
+
+def _four_step_only(launches):
+    """Both four-step kernels launched and the direct one not."""
+    return (launches["cwt_stage_a"] > 0 and launches["cwt_stage_b"] > 0
+            and launches["cwt_direct"] == 0)
 
 
 def phase_device():
@@ -146,7 +175,7 @@ def phase_kernels_vs_plain():
                         same = all(torch.equal(got[b], singles[b]) for b in range(2))
                     check(same, f"batch != singles at {nfft} {m} {output}")
         log(f"kernels vs plain, nfft={nfft}: ok (worst so far {worst})")
-    check(all(v > 0 for v in fc.KERNEL_LAUNCHES.values()),
+    check(_four_step_only(fc.KERNEL_LAUNCHES),
           f"kernel counters did not advance: {fc.KERNEL_LAUNCHES}")
     return worst
 
@@ -159,14 +188,13 @@ def phase_public_path():
     from pycwt_torch.ops import fused_cwt as fc
     from pycwt_torch.transform import icwt_planar
 
-    g = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                             "golden", "cwt_nino3_morlet6.npz"))
+    g = np.load(os.path.join(GOLDEN, "cwt_nino3_morlet6.npz"))
     dt = float(g["dt"])
-    fc.KERNEL_LAUNCHES.update(cwt_stage_a=0, cwt_stage_b=0)
+    _reset_counts()
     W, sj, *_ = pt.cwt(g["signal"], dt)
     power, sj2, *_ = pt.cwt_power(g["signal"], dt)
     launches = dict(fc.KERNEL_LAUNCHES)
-    check(all(v > 0 for v in launches.values()),
+    check(_four_step_only(launches),
           f"cwt/cwt_power did not launch both kernels: {launches}")
     ref = np.abs(g["W"]) ** 2
     e_cwt = rel_err(np.abs(W) ** 2, ref)
@@ -225,11 +253,11 @@ def phase_bench_shape():
         return fc.fused_cwt_planar(sr, si, scales, precision=DEFAULT.precision,
                                    output="power_sum", **kw)
 
-    fc.KERNEL_LAUNCHES.update(cwt_stage_a=0, cwt_stage_b=0)
+    _reset_counts()
     pw = pipeline()
     torch.cuda.synchronize()
     launches = dict(fc.KERNEL_LAUNCHES)
-    check(all(v > 0 for v in launches.values()),
+    check(_four_step_only(launches),
           f"main path did not launch both kernels: {launches}")
 
     sr, si = fft_of_real_planar(x, N0, half=True)
@@ -316,6 +344,348 @@ def phase_gradient():
     log(f"gradient through kernels vs plain: x {ex:.3e}, scales {es:.3e} (bound 1e-4)")
 
 
+def phase_direct_vs_plain():
+    """cwt_direct (K3) at nfft 2^8, 2^10, 2^12, every mother, full and half
+    spectrum, three outputs and three tiers against its plain version; B = 2
+    against two single calls, bit for bit; at 2^13 small_kernel runs K1+K2."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+
+    worst = {tier: 0.0 for tier in TIER_BOUND}
+    worst_at = ""
+    # kernel and plain version, each against the plain version in f64
+    vs_f64 = {"kernel": 0.0, "plain": 0.0}
+    mothers = [pt.Morlet(6), pt.Paul(4), pt.DOG(2), pt.DOG(6)]
+    _reset_counts()
+    for nfft in DIRECT_SIZES:
+        for m in mothers:
+            for half in ((False, True) if m.analytic_negligible_negative() else (False,)):
+                # 37 scales: a ragged last tile of the kernel's 32
+                sr, si, sc = _inputs(nfft, half, 2, 37, seed=nfft)
+                kw = dict(mother=m, nfft=nfft, dt=1.0)
+                rr, ri = fc._direct_reference(sr, si, sc, **kw)
+                scale_w = float(torch.sqrt(rr * rr + ri * ri).max())
+                t64 = torch.complex(*fc._direct_reference(sr.double(), si.double(),
+                                                          sc.double(), **kw))
+                for output in OUTPUTS:
+                    ref = fc._epilogue(rr, ri, output)
+                    for tier in TIER_BOUND:
+                        got = fc.fused_cwt_planar(sr, si, sc, output=output, precision=tier,
+                                                  small_kernel=True, **kw)
+                        if output == "planes":
+                            err = max(float((got[0] - rr).abs().max()),
+                                      float((got[1] - ri).abs().max())) / scale_w
+                        else:
+                            err = float((got - ref).abs().max() / ref.abs().max())
+                        check(math.isfinite(err) and err < TIER_BOUND[tier],
+                              f"cwt_direct {nfft} {m} half={half} {output} {tier}: {err}")
+                        if err > worst[tier]:
+                            worst[tier] = err
+                            worst_at = f"nfft {nfft} {m} half={half} {output}"
+                    if output == "planes":
+                        for key, w in (("kernel", got), ("plain", (rr, ri))):
+                            e = float((torch.complex(*w).to(t64.dtype) - t64).abs().max()
+                                      / t64.abs().max())
+                            vs_f64[key] = max(vs_f64[key], e)
+                    if output == "power_sum":
+                        continue  # a torch.sum after the kernel, not the kernel
+                    singles = [fc.fused_cwt_planar(sr[b], si[b], sc, output=output,
+                                                   small_kernel=True, **kw)
+                               for b in range(2)]
+                    if output == "planes":
+                        same = all(torch.equal(got[i][b], singles[b][i])
+                                   for b in range(2) for i in range(2))
+                    else:
+                        same = all(torch.equal(got[b], singles[b]) for b in range(2))
+                    check(same, f"cwt_direct batch != singles at {nfft} {m} {output}")
+        log(f"cwt_direct vs plain, nfft={nfft}: ok (worst so far {worst}, at "
+            f"{worst_at}; planes vs the f64 plain version: {vs_f64})")
+    launches = dict(fc.KERNEL_LAUNCHES)
+    check(launches["cwt_direct"] > 0 and launches["cwt_stage_a"] == 0,
+          f"small_kernel did not route to cwt_direct: {launches}")
+    _reset_counts()
+    sr, si, sc = _inputs(1 << 13, False, 1, 4, seed=13)
+    fc.fused_cwt_planar(sr, si, sc, mother=pt.Morlet(6), nfft=1 << 13, dt=1.0,
+                        small_kernel=True)
+    check(_four_step_only(fc.KERNEL_LAUNCHES),
+          f"small_kernel at 2^13 must run K1+K2: {fc.KERNEL_LAUNCHES}")
+    log(f"small_kernel at 2^13 launches {dict(fc.KERNEL_LAUNCHES)}")
+    return worst, vs_f64
+
+
+@contextlib.contextmanager
+def _route(small: bool):
+    """PYCWT_TPU_SMALL_KERNEL=1 (the cwt_direct route) or unset (K1+K2)
+    inside the block; the variable's old value after it."""
+    old = os.environ.pop("PYCWT_TPU_SMALL_KERNEL", None)
+    if small:
+        os.environ["PYCWT_TPU_SMALL_KERNEL"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("PYCWT_TPU_SMALL_KERNEL", None)
+        if old is not None:
+            os.environ["PYCWT_TPU_SMALL_KERNEL"] = old
+
+
+def phase_slice_path(small: bool):
+    """The statistics / XWT / WCT path through the public entry points on
+    the card, on one route, against the f64 goldens at the f32 bounds."""
+    import pycwt_torch as pt
+    from pycwt_torch.analysis import cwt_analysis, wct_analysis, xwt_analysis
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.sample import load
+
+    name = "cwt_direct (PYCWT_TPU_SMALL_KERNEL=1)" if small else "default (K1+K2)"
+    with _route(small):
+        errs = {}
+        _reset_counts()
+        for norm in (0, 1):
+            g = np.load(os.path.join(GOLDEN, f"xwt_jao_jbaltic_norm{norm}.npz"))
+            W12, coi, freq, signif = pt.xwt(g["y1"], g["y2"], float(g["dt"]),
+                                            significance_level=0.8646,
+                                            normalize=bool(norm))
+            errs[f"xwt_norm{norm}"] = rel_err(np.abs(W12), np.abs(g["W12"]))
+            check(rel_err(signif, g["signif"]) < 1e-10, "xwt signif")
+        mag, *_ = pt.xwt_planar(g["y1"], g["y2"], float(g["dt"]),
+                                significance_level=0.8646)
+        errs["xwt_planar"] = rel_err(mag, np.abs(g["W12"]))
+        g = np.load(os.path.join(GOLDEN, "wct_jao_jbaltic.npz"))
+        WCT, aWCT, coi, freq, sig = pt.wct(g["y1"], g["y2"], float(g["dt"]), sig=False)
+        check(WCT.shape == g["WCT"].shape and np.isfinite(WCT).all(), "wct shape/finite")
+        errs["wct"] = rel_err(WCT, g["WCT"])
+        gn = np.load(os.path.join(GOLDEN, "figure_nino3.npz"))
+        ds = load("nino3")
+        res = cwt_analysis(ds.values, ds.dt, t0=ds.t0, mother=pt.Morlet(6),
+                           avg_band=(2, 8))
+        errs["cwt_analysis_power"] = rel_err(res.power, gn["power"])
+        check(np.isfinite(res.sig95).all() and np.isfinite(res.global_signif).all(),
+              "cwt_analysis significance finite")
+        gf = np.load(os.path.join(GOLDEN, "figure_jao_jbaltic.npz"))
+        jao, jba = load("jao"), load("jbaltic")
+        n = min(jao.values.size, jba.values.size)
+        x = xwt_analysis(jao.values[:n], jba.values[:n], jao.dt, significance_level=0.8646)
+        w = wct_analysis(jao.values[:n], jba.values[:n], jao.dt, sig=False)
+        errs["xwt_analysis"] = rel_err(x["cross_power"], gf["cross_power"])
+        errs["wct_analysis"] = rel_err(w["WCT"], gf["wct"])
+        torch.cuda.synchronize()
+        launches = dict(fc.KERNEL_LAUNCHES)
+    bounds = dict(xwt_norm0=XWT_BOUND, xwt_norm1=XWT_BOUND, xwt_planar=XWT_BOUND,
+                  wct=WCT_BOUND, cwt_analysis_power=CWT_BOUND,
+                  xwt_analysis=XWT_BOUND, wct_analysis=WCT_BOUND)
+    for key, err in errs.items():
+        check(err < bounds[key], f"{name}: {key} rel_err {err} >= {bounds[key]}")
+    if small:
+        ok = (launches["cwt_direct"] > 0 and launches["cwt_stage_a"] == 0
+              and launches["cwt_stage_b"] == 0)
+    else:
+        ok = _four_step_only(launches)
+    check(ok, f"{name}: wrong kernels launched: {launches}")
+    log(f"slice path, route {name}: launches {launches}; rel_err " +
+        ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return launches, errs
+
+
+def _wct_pair(n0=4000, period=64.0, g=0.7, seed=0):
+    """Two seeded AR(1) red-noise series sharing a 64-step oscillation."""
+    from pycwt_torch.stats import rednoise_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    red = rednoise_batch(gen, n0, g, batch=2, dtype=torch.float64).cpu().numpy()
+    wave = np.sin(2 * np.pi * np.arange(n0) / period)
+    return red[0] + wave, red[1] + wave
+
+
+def _wct_core_inputs(y1, y2):
+    """Normalized f32 rows and the dj = 1/12 scales of a WCT pair on the
+    card, and a call of ``_wct_core`` on them (nfft 4096, Morlet-6)."""
+    import pycwt_torch as pt
+    from pycwt_torch import coherence as tco
+    from pycwt_torch.transform import build_scale_grid
+
+    sj = torch.tensor(build_scale_grid(y1.size, 1.0).sj, dtype=torch.float32,
+                      device="cuda")
+    ys = [torch.tensor((y - y.mean()) / y.std(), dtype=torch.float32,
+                       device="cuda")[None] for y in (y1, y2)]
+    return ys, sj, lambda: tco._wct_core(ys[0], ys[1], sj, 1.0, mother=pt.Morlet(6),
+                                         nfft=4096, dj=1 / 12)
+
+
+def phase_wct_trace(calls=5):
+    """``python3 chip_smoke.py --trace``: torch.profiler over ``calls`` calls
+    of ``_wct_core`` at the 4,000-point shape on each route — device time by
+    kernel, the device's busy time per call (sum of kernel times, one
+    stream) and its share of the wall time under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ys, sj, core_call = _wct_core_inputs(*_wct_pair())
+    for small in (False, True):
+        with _route(small):
+            for _ in range(3):
+                core_call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    core_call()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / calls
+        rows = []   # kernels only: an operator's row repeats its kernels' time
+        for e in prof.key_averages():
+            dev = getattr(e, "self_device_time_total", None)
+            if dev is None:
+                dev = e.self_cuda_time_total
+            if e.device_type == DeviceType.CUDA and dev > 0:
+                rows.append((dev / calls / 1e3, e.count / calls, e.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        check(busy > 0, "the profiler saw no device time")
+        log(f"trace, route {'cwt_direct' if small else 'default (K1+K2)'}: "
+            f"{wall:.4f} ms wall per _wct_core call under the profiler, device busy "
+            f"{busy:.4f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
+        for ms, n, key in rows[:10]:
+            log(f"  {ms:.4f} ms  x{n:g}  {key[:90]}")
+
+
+def _direct_bound(B, S, K, nfft):
+    """(bytes, ops, direct_ops) of the function cwt_direct computes: X and
+    scales in, two W planes out; the least operations are the FFT route's,
+    a complex filter multiply (6 flops) per (signal, scale, bin) and a
+    radix-2 inverse FFT (5·N·log2 N) per (signal, scale).  ``direct_ops``
+    is the direct DFT's own count, a complex multiply-add (8 flops) per
+    (signal, scale, bin, time): the work of the kernel's algorithm, not of
+    its function."""
+    nbytes = 2 * B * K * 4 + S * 4 + 2 * B * S * nfft * 4
+    ops = B * S * (6 * K + 5 * nfft * math.log2(nfft))
+    return nbytes, ops, 8.0 * B * S * K * nfft
+
+
+def phase_real_size():
+    """wct(sig=False) on a 4,000-point pair (nfft 4096, dj = 1/12 → 133
+    scales) on both routes; the kernels, the plain version and the library
+    yardsticks timed on the same (2, 2048) half spectra."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops.filterbank import angular_frequencies, filter_bank
+    from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+
+    y1, y2 = _wct_pair()
+    n0, dt, nfft, mother = y1.size, 1.0, 4096, pt.Morlet(6)
+    out, counts = {}, {}
+    for small in (False, True):
+        with _route(small):
+            _reset_counts()
+            WCT, aWCT, coi, freq, _ = pt.wct(y1, y2, dt, sig=False)
+            torch.cuda.synchronize()
+            counts[small] = dict(fc.KERNEL_LAUNCHES)
+        check(WCT.shape == (133, n0) and np.isfinite(WCT).all(), "4,000-point wct")
+        out[small] = WCT
+    check(counts[True]["cwt_direct"] > 0 and counts[True]["cwt_stage_a"] == 0,
+          f"4,000-point wct on the opt-in route: {counts[True]}")
+    check(_four_step_only(counts[False]), f"4,000-point wct, default: {counts[False]}")
+    agree = rel_err(out[True], out[False])
+    check(agree < 1e-3, f"routes disagree at the 4,000-point shape: {agree}")
+
+    ys, sj, core_call = _wct_core_inputs(y1, y2)
+    S = sj.shape[0]
+    core = {}
+    for small in (False, True):
+        with _route(small):
+            core[small] = time_ms(core_call)
+
+    x = torch.stack([y[0] for y in ys])                        # (2, 4000)
+    sr, si = fft_of_real_planar(x, nfft, half=True)            # (2, 2048)
+    kw = dict(mother=mother, nfft=nfft, dt=dt)
+    got = fc.cwt_direct(sr, si, sj, **kw)
+    ref = fc._direct_reference(sr, si, sj, **kw)
+    err = max(float((got[i] - ref[i]).abs().max()) for i in range(2))
+    tol = TIER_BOUND["highest"] * float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).max())
+    check(err <= tol, f"cwt_direct at the WCT shape: {err} > {tol}")
+    del got, ref
+    ms_direct = time_ms(lambda: fc.cwt_direct(sr, si, sj, **kw))
+    ms_four = time_ms(lambda: fc.stage_b(*fc.stage_a(sr, si, sj, **kw), nfft=nfft,
+                                         output="planes"))
+    plain_ms = time_ms(lambda: fc._direct_reference(sr, si, sj, **kw), runs=10, warmup=1)
+    spec = torch.complex(*fft_of_real_planar(x, nfft))
+    prod = spec[:, None] * filter_bank(mother, sj, angular_frequencies(
+        nfft, dt, torch.float32, "cuda"), dt).to(torch.complex64)[None]
+    lib_ms = time_ms(lambda: torch.fft.ifft(prod, dim=-1), runs=10, warmup=1)
+    K = nfft // 2
+    Y = prod[..., :K].contiguous()
+    kt = (torch.arange(K, device="cuda")[:, None]
+          * torch.arange(nfft, device="cuda")[None, :]) % nfft
+    E = torch.polar(torch.ones(K, nfft, dtype=torch.float64, device="cuda"),
+                    (2 * math.pi / nfft) * kt.double()).to(torch.complex64)
+    matmul_ms = time_ms(lambda: torch.matmul(Y, E), runs=10, warmup=1)
+    del prod, Y, E
+    nbytes, ops, direct_ops = _direct_bound(2, S, K, nfft)
+    bound, by = _bound_ms(nbytes, ops)
+    algorithm_ms = direct_ops / PEAK_F32 * 1e3
+    log(f"cwt_direct bound at B=2 S={S} K={K} N={nfft}: {bound:.4f} ms ({by}; "
+        f"{nbytes:.4e} bytes, {ops:.4e} flops on the FFT route); the direct "
+        f"DFT's own {direct_ops:.4e} flops take {algorithm_ms:.4f} ms at the f32 peak")
+    log(f"4,000-point WCT pair (nfft 4096, {S} scales): routes agree {agree:.3e}; "
+        f"_wct_core default (K1+K2) {core[False]:.4f} ms, opt-in (cwt_direct) "
+        f"{core[True]:.4f} ms; launches default {counts[False]}, opt-in {counts[True]}")
+    log(f"(2, {K}) half spectra, {S} scales: cwt_direct {ms_direct:.4f} ms, "
+        f"cwt_stage_a+cwt_stage_b {ms_four:.4f} ms, plain cwt_direct {plain_ms:.4f} ms, "
+        f"torch.fft.ifft of the filtered (2, {S}, {nfft}) product {lib_ms:.4f} ms, "
+        f"complex torch.matmul (2, {S}, {K}) @ ({K}, {nfft}) {matmul_ms:.4f} ms; "
+        f"cwt_direct vs plain {err:.3e} (tol {tol:.3e})")
+    return dict(launches=counts[True]["cwt_direct"], err=err, tol=tol, ms=ms_direct,
+                plain_ms=plain_ms, bound=bound, by=by, lib_ms=lib_ms,
+                matmul_ms=matmul_ms, ms_four=ms_four, core=core, agree=agree,
+                bytes=nbytes, ops=ops, algorithm_ms=algorithm_ms, S=S)
+
+
+def phase_direct_sizes():
+    """Both routes at nfft 2^8, 2^10, 2^12: a half spectrum of one signal
+    and S = 12·log2(nfft/4) + 1 scales (a dj = 1/12 grid's count)."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+
+    rows = {}
+    for nfft in DIRECT_SIZES:
+        S = int(round(math.log2(nfft / 4) * 12)) + 1
+        sr, si, sc = _inputs(nfft, True, 1, S, seed=nfft)
+        kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0)
+        rows[nfft] = dict(
+            S=S, direct=time_ms(lambda: fc.cwt_direct(sr, si, sc, **kw)),
+            four=time_ms(lambda: fc.stage_b(*fc.stage_a(sr, si, sc, **kw),
+                                            nfft=nfft, output="planes")))
+    log("cwt_direct vs cwt_stage_a+cwt_stage_b, one half spectrum, planes: " +
+        "; ".join(f"nfft {n} S {r['S']}: {r['direct']:.4f} vs {r['four']:.4f} ms"
+                  for n, r in rows.items()))
+    return rows
+
+
+def phase_direct_gradient():
+    """Gradients through cwt_direct's autograd Function equal the plain
+    version's at nfft = 2^12 within 1e-4 (tests/test_autodiff.py:91-111)."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+
+    nfft = 1 << 12
+    x0 = np.random.default_rng(3).standard_normal(nfft)
+
+    def grads(fn):
+        x = torch.tensor(x0, dtype=torch.float32, device="cuda", requires_grad=True)
+        sc = torch.tensor([4.0, 16.0, 64.0], device="cuda", requires_grad=True)
+        sr, si = fft_of_real_planar(x, nfft)
+        return torch.autograd.grad(fn(sr, si, sc).sum() / nfft, (x, sc))
+
+    kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0, output="power_sum")
+    gx, gs = grads(lambda sr, si, sc: fc.fused_cwt_planar(sr, si, sc, small_kernel=True,
+                                                          **kw))
+    rx, rs = grads(lambda sr, si, sc: fc._fused_cwt_planar_reference(sr, si, sc, **kw))
+    ex = float((gx - rx).abs().max() / rx.abs().max())
+    es = float(((gs - rs).abs() / rs.abs()).max())
+    check(ex <= 1e-4 and es <= 1e-4, f"cwt_direct gradients: x {ex}, scales {es}")
+    log(f"gradient through cwt_direct vs plain: x {ex:.3e}, scales {es:.3e} (bound 1e-4)")
+
+
 def main():
     card = phase_device()
     t0 = time.perf_counter()
@@ -324,6 +694,12 @@ def main():
     phase_public_path()
     bench = phase_bench_shape()
     phase_gradient()
+    worst_direct, direct_vs_f64 = phase_direct_vs_plain()
+    phase_slice_path(small=False)
+    phase_slice_path(small=True)
+    real = phase_real_size()
+    sizes = phase_direct_sizes()
+    phase_direct_gradient()
     common = dict(route="cuda", source=KERNEL_SOURCE, library_ms=bench["lib_ms"],
                   library_call="torch.fft.ifft of the filtered (64, 2^20) complex64 product",
                   max_rel_err_by_tier=worst, shape="N=2^20, S=64, Morlet-6, power_sum",
@@ -341,9 +717,25 @@ def main():
              ms=bench["ms_b"], plain_ms=bench["plain_b"],
              bound_ms=bench["bound_b"], bound_by=bench["by_b"],
              bound_bytes=bench["bytes_b"], **common),
+        dict(name="cwt_direct", route="cuda", source=DIRECT_SOURCE,
+             replaces="pycwt_tpu/ops/pallas_fft.py:360",
+             tpu_kernel="_make_kernel_direct (K3)", launches=real["launches"],
+             max_abs_err=real["err"], tolerance=real["tol"], ms=real["ms"],
+             plain_ms=real["plain_ms"], bound_ms=real["bound"], bound_by=real["by"],
+             bound_ops=real["ops"], bound_bytes=real["bytes"],
+             algorithm_ops_ms=real["algorithm_ms"], library_ms=real["lib_ms"],
+             library_call=f"torch.fft.ifft of the filtered (2, {real['S']}, 4096) "
+                          "complex64 product",
+             matmul_ms=real["matmul_ms"], four_step_ms=real["ms_four"],
+             max_rel_err_by_tier=worst_direct, planes_err_vs_f64=direct_vs_f64,
+             shape=f"B=2, K=2048, N=4096, S={real['S']}, Morlet-6, planes", card=card),
     ]
     log(json.dumps({"pipeline_ms": bench["ms_pipe"], "plain_pipeline_ms": bench["plain_pipe"],
                     "sample_scales_per_s": bench["rate"],
+                    "wct_core_ms": {"default": real["core"][False],
+                                    "cwt_direct": real["core"][True]},
+                    "direct_vs_four_step_ms": {str(n): [r["direct"], r["four"]]
+                                               for n, r in sizes.items()},
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -353,4 +745,8 @@ def main():
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    main()
+    if sys.argv[1:] == ["--trace"]:
+        phase_device()
+        phase_wct_trace()
+    else:
+        main()

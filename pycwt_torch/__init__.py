@@ -6,18 +6,22 @@ defaults and return contracts, with the hot loop of the forward transform
 (:mod:`pycwt_torch.ops.fused_cwt`) and everything else in plain PyTorch.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
-This slice ports the forward-CWT main path; the rest of
-``pycwt_tpu/__init__.py``'s exports are listed in ``ROADMAP.md``.
+Ported so far: the forward-CWT main path, the TC98 statistics, XWT and WCT
+without Monte-Carlo significance; the rest of ``pycwt_tpu/__init__.py``'s
+exports are listed in ``ROADMAP.md``.
 """
 
 from . import mothers, sample  # noqa: F401
-from .api import cwt, cwt_power, icwt  # noqa: F401
+from .api import cwt, cwt_power, icwt, significance  # noqa: F401
+from .coherence import wct, xwt, xwt_planar  # noqa: F401
 from .mothers import DOG, MexicanHat, Morlet, Paul  # noqa: F401
+from .stats import ar1, ar1_batch, ar1_spectrum, rednoise  # noqa: F401
 from .utils.helpers import boxpdf, find, get_cache_dir, rect  # noqa: F401
 
 __all__ = [
-    "cwt", "cwt_power", "icwt",
+    "cwt", "cwt_power", "icwt", "significance", "xwt", "xwt_planar", "wct",
     "mothers", "Morlet", "Paul", "DOG", "MexicanHat",
-    "find", "rect", "boxpdf", "get_cache_dir",
+    "ar1", "ar1_batch", "ar1_spectrum", "rednoise", "find", "rect", "boxpdf",
+    "get_cache_dir",
 ]
 __version__ = "0.1.0"

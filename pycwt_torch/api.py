@@ -1,7 +1,8 @@
 """pycwt-compatible user API on PyTorch.
 
 Counterpart of ``pycwt_tpu/api.py``: the same names, signatures, defaults
-and return conventions (``cwt``, ``cwt_power``, ``icwt``).  Inputs are
+and return conventions (``cwt``, ``cwt_power``, ``icwt``, and
+``significance``, implemented in :mod:`pycwt_torch.stats`).  Inputs are
 numpy/array-likes and outputs numpy arrays; the transform runs on
 ``device``, which defaults to ``"cuda"``.  Without a card the call raises
 and names ``device="cpu"``: there is no silent CPU run.  ``icwt`` stays host
@@ -14,10 +15,11 @@ import torch
 
 from .config import DEFAULT, CWTConfig
 from .mothers import as_mother
+from .stats import significance  # noqa: F401  (re-exported, implemented in stats)
 from .transform import (build_scale_grid, coi_bartlett, cwt_batch,
                         drop_reference_nan_rows)
 
-__all__ = ["cwt", "cwt_power", "icwt"]
+__all__ = ["cwt", "cwt_power", "icwt", "significance"]
 
 
 def _resolve_device(device) -> torch.device:

@@ -121,6 +121,12 @@ class Morlet:
     def deltaj0(self) -> float:
         return 0.60 if self.f0 == 6 else -1.0
 
+    def smooth(self, W, dt, dj, scales):
+        """WCT smoothing (time Gaussian, scale boxcar); delegates to the op."""
+        from .ops.smoothing import smooth as _smooth
+
+        return _smooth(W, dt, dj, scales, self)
+
     def reference_nan_rows(self, scales: np.ndarray, ftfreqs: np.ndarray) -> np.ndarray:
         """Morlet's Gaussian underflows to 0; no row is ever non-finite."""
         return np.zeros(len(scales), dtype=bool)
@@ -190,6 +196,12 @@ class Paul:
     @property
     def deltaj0(self) -> float:
         return 1.50 if self.m == 4 else -1.0
+
+    def smooth(self, W, dt, dj, scales):
+        """WCT smoothing (time Gaussian, scale boxcar); delegates to the op."""
+        from .ops.smoothing import smooth as _smooth
+
+        return _smooth(W, dt, dj, scales, self)
 
     def reference_nan_rows(self, scales: np.ndarray, ftfreqs: np.ndarray) -> np.ndarray:
         """Rows where the reference's naive ``c·f^m·e^(−f)·(f>0)`` gives
@@ -263,6 +275,12 @@ class DOG:
     @property
     def deltaj0(self) -> float:
         return {2: 1.40, 6: 0.97}.get(self.m, -1.0)
+
+    def smooth(self, W, dt, dj, scales):
+        """WCT smoothing (time Gaussian, scale boxcar); delegates to the op."""
+        from .ops.smoothing import smooth as _smooth
+
+        return _smooth(W, dt, dj, scales, self)
 
     def reference_nan_rows(self, scales: np.ndarray, ftfreqs: np.ndarray) -> np.ndarray:
         """The Gaussian underflows before f^m overflows: finite in float64."""

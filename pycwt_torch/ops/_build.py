@@ -22,7 +22,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 #: library name -> its CUDA source in csrc/
-SOURCES = {"fused_cwt": "fused_cwt.cu"}
+SOURCES = {"fused_cwt": "fused_cwt.cu", "direct_cwt": "direct_cwt.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -35,6 +35,10 @@ _SIGNATURES = {
         "cwt_stage_a": ([_V, _V, _LL, _V, _V, _V, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _F, _F, _F, _F, _V], _I),
         "cwt_stage_b": ([_V, _V, _V, _V, _LL, _I, _I, _I, _I, _F, _V], _I),
+    },
+    "direct_cwt": {
+        "cwt_direct": ([_V, _V, _LL, _V, _V, _V, _I, _I, _I, _I, _I, _I,
+                        _F, _I, _F, _F, _F, _F, _V], _I),
     },
 }
 

@@ -16,6 +16,17 @@ The kernels' gradient replays the plain version (:class:`_FusedCWT`), as the
 JAX package's ``_with_xla_vjp`` does.  Each kernel wrapper also has its own
 plain version (:func:`_stage_a_reference`, :func:`_stage_b_reference`) with
 the kernel's exact layout, so the four-step split is checked on the CPU.
+
+For nfft ≤ 2^12, ``small_kernel=True`` (or ``PYCWT_TPU_SMALL_KERNEL=1``)
+selects the JAX package's opt-in direct-DFT kernel ``_make_kernel_direct``
+instead, ported as ``cwt_direct`` (``csrc/direct_cwt.cu``):
+
+    W[s, t] = (1/N) Σ_{k<K} X[k]·H̄_s[k] e^{2πi·kt/N},  K = N or (analytic) N/2
+
+with its plain version :func:`_direct_reference` (the filtered (B, S, K)
+product, then a complex matmul against the (K, N) DFT matrix), which a CPU
+tensor runs on that route.  Above 2^12 the option is ignored and the two
+kernels run, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -29,10 +40,16 @@ from ..mothers import DOG, Morlet, Mother, Paul
 from .filterbank import angular_frequencies
 
 __all__ = ["fused_cwt", "fused_cwt_planar", "supported_nfft",
-           "KERNEL_LAUNCHES", "stage_a", "stage_b"]
+           "KERNEL_LAUNCHES", "stage_a", "stage_b", "cwt_direct"]
 
 #: Launches of each CUDA kernel, counted by its wrapper where it launches.
-KERNEL_LAUNCHES = {"cwt_stage_a": 0, "cwt_stage_b": 0}
+KERNEL_LAUNCHES = {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0}
+
+#: Largest nfft that ``small_kernel`` routes to ``cwt_direct``
+#: (``pycwt_tpu/ops/pallas_fft.py:73``).
+_SMALL_KERNEL_MAX = 1 << 12
+#: cwt_direct's block tile: scales × times (kTileS, kTileT in csrc/direct_cwt.cu)
+_DIRECT_TILE = (32, 64)
 
 #: epilogue -> the kernel's mode id (enum Mode in csrc/fused_cwt.cu)
 _MODES = {"planes": 0, "power": 1, "power_sum": 2}
@@ -45,7 +62,8 @@ _MAX_COLS = 16
 
 
 def supported_nfft(nfft: int) -> bool:
-    """Pow-2 lengths ≥ 2^8 — every one of them runs the two kernels."""
+    """Pow-2 lengths ≥ 2^8.  Each runs the two kernels ``cwt_stage_a`` and
+    ``cwt_stage_b``; with ``small_kernel`` those ≤ 2^12 run ``cwt_direct``."""
     return nfft >= (1 << 8) and (1 << (nfft.bit_length() - 1)) == nfft
 
 
@@ -122,6 +140,32 @@ def _fused_cwt_planar_reference(sr, si, scales, *, mother: Mother, nfft: int,
     xi = si[..., None, :]
     W = torch.fft.ifft(torch.complex(xr * br - xi * bi, xr * bi + xi * br),
                        dim=-1)
+    return _epilogue(W.real, W.imag, output)
+
+
+def _direct_reference(sr, si, scales, *, mother: Mother, nfft: int,
+                      dt: float, output: str = "planes"):
+    """Kernel K3's function in PyTorch, in the kernel's formulation and the
+    dtype given: the filtered ``(..., S, K)`` product of the first K bins
+    (K = nfft/2 for analytic mothers, even of a full spectrum; negative bins
+    folded when K = nfft), then a complex ``torch.matmul`` with the (K, nfft)
+    matrix E[k, t] = e^{2πi·kt/N}, built in f64 and cast, over N.
+    Differentiable."""
+    K = nfft // 2 if _is_analytic(mother) else nfft
+    dev, rdt = sr.device, sr.dtype
+    k = torch.arange(K, device=dev)
+    kf = torch.where(k >= nfft // 2, k - nfft, k) if K == nfft else k
+    omega = (2.0 * math.pi / (nfft * dt)) * kf.to(rdt)
+    scales = scales.to(rdt)
+    env = mother.psi_ft_envelope(scales[:, None] * omega[None, :])
+    norm = torch.sqrt(2.0 * math.pi * scales / dt)[:, None]
+    cbar = complex(mother.psi_ft_const()).conjugate()
+    h = torch.complex(norm * env * cbar.real, norm * env * cbar.imag)
+    x = torch.complex(sr[..., :K], si[..., :K])
+    kt = (k[:, None] * torch.arange(nfft, device=dev)[None, :]) % nfft
+    E = torch.polar(torch.ones((), dtype=torch.float64, device=dev),
+                    (2.0 * math.pi / nfft) * kt.to(torch.float64)).to(h.dtype)
+    W = torch.matmul(x[..., None, :] * h, E) / nfft
     return _epilogue(W.real, W.imag, output)
 
 
@@ -256,6 +300,42 @@ def stage_b(tr, ti, *, nfft: int, output: str):
     return out0 if output == "power" else out1
 
 
+def cwt_direct(sr, si, scales, *, mother: Mother, nfft: int, dt: float):
+    """Kernel K3: ``(B, n_in)`` planar spectra and ``(S,)`` scales → W planes
+    ``(B, S, nfft)`` f32, for pow-2 nfft in [2^8, 2^12].  CPU tensors run
+    :func:`_direct_reference`."""
+    if _check_device(sr) == "cpu":
+        return _direct_reference(sr, si, scales, mother=mother, nfft=nfft, dt=dt)
+    from ._build import library
+
+    B, n_in = sr.shape
+    K = nfft // 2 if _is_analytic(mother) else nfft
+    if (not supported_nfft(nfft) or nfft > _SMALL_KERNEL_MAX
+            or n_in not in (nfft, nfft // 2) or n_in < K
+            or si.shape != sr.shape or scales.ndim != 1):
+        raise ValueError(f"spectra {tuple(sr.shape)}/{tuple(si.shape)} and scales "
+                         f"{tuple(scales.shape)} do not fit cwt_direct at "
+                         f"nfft={nfft} (2^8..2^12; K={K} bins)")
+    sr = sr.to(torch.float32).contiguous()
+    si = si.to(device=sr.device, dtype=torch.float32).contiguous()
+    scales = scales.to(device=sr.device, dtype=torch.float32).contiguous()
+    S = scales.shape[0]
+    _check_grid(B * -(-S // _DIRECT_TILE[0]) * (nfft // _DIRECT_TILE[1]))
+    kind, f0, m = _mother_args(mother)
+    cbar = complex(mother.psi_ft_const()).conjugate()
+    wr = torch.empty((B, S, nfft), dtype=torch.float32, device=sr.device)
+    wi = torch.empty_like(wr)
+    with torch.cuda.device(sr.device):
+        err = library("direct_cwt").cwt_direct(
+            sr.data_ptr(), si.data_ptr(), n_in, scales.data_ptr(),
+            wr.data_ptr(), wi.data_ptr(), B, S, nfft, K, int(K == nfft),
+            kind, f0, m, cbar.real, cbar.imag, float(dt),
+            2.0 * math.pi / (nfft * dt), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "cwt_direct")
+    KERNEL_LAUNCHES["cwt_direct"] += 1
+    return wr, wi
+
+
 class _FusedCWT(torch.autograd.Function):
     """Forward: the two CUDA kernels.  Backward: the gradient of the plain
     version on the saved inputs (there is no backward kernel)."""
@@ -291,6 +371,19 @@ class _FusedCWT(torch.autograd.Function):
         return (*result, None, None, None, None)
 
 
+class _FusedDirect(_FusedCWT):
+    """Forward: kernel K3 (``cwt_direct``), then the epilogue in PyTorch, as
+    the JAX package runs it after the kernel.  Backward: inherited, the
+    gradient of the plain version."""
+
+    @staticmethod
+    def forward(ctx, sr, si, scales, mother, nfft, dt, output):
+        ctx.save_for_backward(sr, si, scales)
+        ctx.params = (mother, nfft, dt, output)
+        return _epilogue(*cwt_direct(sr, si, scales, mother=mother, nfft=nfft,
+                                     dt=dt), output)
+
+
 def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
                      dt: float, power_only: bool = False,
                      precision: str = "highest",
@@ -305,9 +398,9 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
     Σ_t |W|² ``(..., S)`` (the legacy ``power_only=True``).  All three
     ``precision`` tiers currently run the same f32 kernels.
 
-    ``small_kernel=True`` (or ``PYCWT_TPU_SMALL_KERNEL=1``) asks for the JAX
-    package's direct-DFT kernel, which is not ported yet: on a CUDA tensor it
-    raises ``NotImplementedError``.
+    ``small_kernel=True`` (or, when it is None, ``PYCWT_TPU_SMALL_KERNEL=1``)
+    runs the direct-DFT kernel ``cwt_direct`` for nfft ≤ 2^12 and is ignored
+    above, as in the JAX package; on a CPU tensor its plain version runs.
     """
     if small_kernel is None:
         small_kernel = os.environ.get("PYCWT_TPU_SMALL_KERNEL") == "1"
@@ -335,17 +428,16 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
             f"spectrum length {n_in} incompatible with nfft={nfft} "
             f"(half-spectrum input needs an analytic mother)")
     scales = torch.as_tensor(scales, device=sig_r.device)
+    small = bool(small_kernel) and nfft <= _SMALL_KERNEL_MAX
 
     if _check_device(sig_r) == "cpu":
-        return _fused_cwt_planar_reference(sig_r, sig_i, scales, mother=mother,
-                                           nfft=nfft, dt=float(dt), output=output)
-    if small_kernel:
-        raise NotImplementedError(
-            "small_kernel=True: the direct-DFT kernel (_make_kernel_direct) is "
-            "not ported to CUDA yet — ROADMAP.md queue 2")
+        plain = _direct_reference if small else _fused_cwt_planar_reference
+        return plain(sig_r, sig_i, scales, mother=mother, nfft=nfft,
+                     dt=float(dt), output=output)
     lead = sig_r.shape[:-1]
-    out = _FusedCWT.apply(sig_r.reshape(-1, n_in), sig_i.reshape(-1, n_in),
-                          scales, mother, nfft, float(dt), output)
+    route = _FusedDirect if small else _FusedCWT
+    out = route.apply(sig_r.reshape(-1, n_in), sig_i.reshape(-1, n_in),
+                      scales, mother, nfft, float(dt), output)
     if output == "planes":
         return tuple(o.reshape(*lead, *o.shape[1:]) for o in out)
     return out.reshape(*lead, *out.shape[1:])
