@@ -15,8 +15,11 @@ just after:
   on the default route and on the ``PYCWT_TPU_SMALL_KERNEL=1`` route through
   ``cwt_direct``, against the goldens, and a 4,000-point WCT pair on both.
 
-It times the kernels with CUDA events and prints one JSON line of kernel
-numbers and, last, one JSON ``ok`` line.  Any failure raises: the exit code
+It times K1 and K2 at the 2^20-point bench shape with CUDA events, and
+``cwt_direct``, the K1+K2 pair and the ``torch.fft.ifft`` yardstick at the
+K3 sizes by ``torch.profiler`` device time per call (CUDA-event times of
+one call stand beside them as ``wall_ms``).  It prints one JSON line of
+kernel numbers and, last, one JSON ``ok`` line.  Any failure raises: the exit code
 is then non-zero and no ``ok`` line is printed.  Without a CUDA device it
 exits non-zero at once.
 """
@@ -40,7 +43,7 @@ PEAK_F32 = 67e12
 #: precision tier -> bound relative to max|W| (tests/test_pallas.py:33, :198, :276)
 TIER_BOUND = {"highest": 1e-5, "high": 2e-4, "fast": 2e-2}
 SIZES = [1 << p for p in (8, 10, 13, 14, 16, 20)]
-DIRECT_SIZES = [1 << p for p in (8, 10, 12)]
+DIRECT_SIZES = [1 << p for p in range(8, 13)]
 OUTPUTS = ("planes", "power", "power_sum")
 KERNEL_SOURCE = "pycwt_torch/csrc/fused_cwt.cu"
 DIRECT_SOURCE = "pycwt_torch/csrc/direct_cwt.cu"
@@ -84,6 +87,40 @@ def time_ms(fn, runs=11, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _device_rows(prof, calls):
+    """(ms per call, launches per call, name) of every device kernel in a
+    torch.profiler run of ``calls`` calls; operators' rows, which repeat
+    their kernels' time, are left out."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = e.self_cuda_time_total
+        if e.device_type == DeviceType.CUDA and dev > 0:
+            rows.append((dev / calls / 1e3, e.count / calls, e.key))
+    rows.sort(reverse=True)
+    check(rows, "the profiler saw no device time")
+    return rows
+
+
+def device_ms(fn, calls=50, warmup=3):
+    """Device time of one call of ``fn()``: the kernel times that
+    torch.profiler (CUPTI) records over ``calls`` calls, summed, per call.
+    At these sizes a CUDA-event time around a call is mostly host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _device_rows(prof, calls))
 
 
 def _reset_counts():
@@ -345,9 +382,10 @@ def phase_gradient():
 
 
 def phase_direct_vs_plain():
-    """cwt_direct (K3) at nfft 2^8, 2^10, 2^12, every mother, full and half
-    spectrum, three outputs and three tiers against its plain version; B = 2
-    against two single calls, bit for bit; at 2^13 small_kernel runs K1+K2."""
+    """cwt_direct (K3) at every nfft from 2^8 to 2^12, every mother, full and
+    half spectrum, three outputs (from the kernel's own epilogue) and three
+    tiers against its plain version; B = 2 against two single calls, bit for
+    bit in every output; at 2^13 small_kernel runs K1+K2."""
     import pycwt_torch as pt
     from pycwt_torch.ops import fused_cwt as fc
 
@@ -360,7 +398,7 @@ def phase_direct_vs_plain():
     for nfft in DIRECT_SIZES:
         for m in mothers:
             for half in ((False, True) if m.analytic_negligible_negative() else (False,)):
-                # 37 scales: a ragged last tile of the kernel's 32
+                # 37 scales: a ragged last block where rows share one (< 2^10)
                 sr, si, sc = _inputs(nfft, half, 2, 37, seed=nfft)
                 kw = dict(mother=m, nfft=nfft, dt=1.0)
                 rr, ri = fc._direct_reference(sr, si, sc, **kw)
@@ -387,8 +425,6 @@ def phase_direct_vs_plain():
                             e = float((torch.complex(*w).to(t64.dtype) - t64).abs().max()
                                       / t64.abs().max())
                             vs_f64[key] = max(vs_f64[key], e)
-                    if output == "power_sum":
-                        continue  # a torch.sum after the kernel, not the kernel
                     singles = [fc.fused_cwt_planar(sr[b], si[b], sc, output=output,
                                                    small_kernel=True, **kw)
                                for b in range(2)]
@@ -516,7 +552,6 @@ def phase_wct_trace(calls=5):
     of ``_wct_core`` at the 4,000-point shape on each route — device time by
     kernel, the device's busy time per call (sum of kernel times, one
     stream) and its share of the wall time under the profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     ys, sj, core_call = _wct_core_inputs(*_wct_pair())
@@ -531,16 +566,8 @@ def phase_wct_trace(calls=5):
                     core_call()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / calls
-        rows = []   # kernels only: an operator's row repeats its kernels' time
-        for e in prof.key_averages():
-            dev = getattr(e, "self_device_time_total", None)
-            if dev is None:
-                dev = e.self_cuda_time_total
-            if e.device_type == DeviceType.CUDA and dev > 0:
-                rows.append((dev / calls / 1e3, e.count / calls, e.key))
-        rows.sort(reverse=True)
+        rows = _device_rows(prof, calls)
         busy = sum(r[0] for r in rows)
-        check(busy > 0, "the profiler saw no device time")
         log(f"trace, route {'cwt_direct' if small else 'default (K1+K2)'}: "
             f"{wall:.4f} ms wall per _wct_core call under the profiler, device busy "
             f"{busy:.4f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %")
@@ -549,16 +576,22 @@ def phase_wct_trace(calls=5):
 
 
 def _direct_bound(B, S, K, nfft):
-    """(bytes, ops, direct_ops) of the function cwt_direct computes: X and
-    scales in, two W planes out; the least operations are the FFT route's,
-    a complex filter multiply (6 flops) per (signal, scale, bin) and a
-    radix-2 inverse FFT (5·N·log2 N) per (signal, scale).  ``direct_ops``
-    is the direct DFT's own count, a complex multiply-add (8 flops) per
-    (signal, scale, bin, time): the work of the kernel's algorithm, not of
-    its function."""
+    """(bytes, ops) of the function cwt_direct computes with the planes
+    output: X and scales in, two W planes out; the least operations are the
+    FFT route's, a complex filter multiply (6 flops) per (signal, scale,
+    bin) and a radix-2 inverse FFT (5·N·log2 N) per (signal, scale)."""
     nbytes = 2 * B * K * 4 + S * 4 + 2 * B * S * nfft * 4
     ops = B * S * (6 * K + 5 * nfft * math.log2(nfft))
-    return nbytes, ops, 8.0 * B * S * K * nfft
+    return nbytes, ops
+
+
+def _filtered_product(sr_full, si_full, sj, mother, nfft, dt):
+    """The filtered (B, S, nfft) complex64 product of full spectra: the
+    input of the ``torch.fft.ifft`` yardstick."""
+    from pycwt_torch.ops.filterbank import angular_frequencies, filter_bank
+
+    bank = filter_bank(mother, sj, angular_frequencies(nfft, dt, torch.float32, "cuda"), dt)
+    return torch.complex(sr_full, si_full)[:, None] * bank.to(torch.complex64)[None]
 
 
 def phase_real_size():
@@ -567,7 +600,6 @@ def phase_real_size():
     yardsticks timed on the same (2, 2048) half spectra."""
     import pycwt_torch as pt
     from pycwt_torch.ops import fused_cwt as fc
-    from pycwt_torch.ops.filterbank import angular_frequencies, filter_bank
     from pycwt_torch.ops.mxu_dft import fft_of_real_planar
 
     y1, y2 = _wct_pair()
@@ -603,45 +635,37 @@ def phase_real_size():
     tol = TIER_BOUND["highest"] * float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).max())
     check(err <= tol, f"cwt_direct at the WCT shape: {err} > {tol}")
     del got, ref
-    ms_direct = time_ms(lambda: fc.cwt_direct(sr, si, sj, **kw))
-    ms_four = time_ms(lambda: fc.stage_b(*fc.stage_a(sr, si, sj, **kw), nfft=nfft,
-                                         output="planes"))
-    plain_ms = time_ms(lambda: fc._direct_reference(sr, si, sj, **kw), runs=10, warmup=1)
-    spec = torch.complex(*fft_of_real_planar(x, nfft))
-    prod = spec[:, None] * filter_bank(mother, sj, angular_frequencies(
-        nfft, dt, torch.float32, "cuda"), dt).to(torch.complex64)[None]
-    lib_ms = time_ms(lambda: torch.fft.ifft(prod, dim=-1), runs=10, warmup=1)
+    ms_direct = device_ms(lambda: fc.cwt_direct(sr, si, sj, **kw))
+    wall_ms = time_ms(lambda: fc.cwt_direct(sr, si, sj, **kw))
+    ms_four = device_ms(lambda: fc.stage_b(*fc.stage_a(sr, si, sj, **kw), nfft=nfft,
+                                           output="planes"))
+    plain_ms = device_ms(lambda: fc._direct_reference(sr, si, sj, **kw), calls=10)
+    prod = _filtered_product(*fft_of_real_planar(x, nfft), sj, mother, nfft, dt)
+    lib_ms = device_ms(lambda: torch.fft.ifft(prod, dim=-1))
+    del prod
     K = nfft // 2
-    Y = prod[..., :K].contiguous()
-    kt = (torch.arange(K, device="cuda")[:, None]
-          * torch.arange(nfft, device="cuda")[None, :]) % nfft
-    E = torch.polar(torch.ones(K, nfft, dtype=torch.float64, device="cuda"),
-                    (2 * math.pi / nfft) * kt.double()).to(torch.complex64)
-    matmul_ms = time_ms(lambda: torch.matmul(Y, E), runs=10, warmup=1)
-    del prod, Y, E
-    nbytes, ops, direct_ops = _direct_bound(2, S, K, nfft)
+    nbytes, ops = _direct_bound(2, S, K, nfft)
     bound, by = _bound_ms(nbytes, ops)
-    algorithm_ms = direct_ops / PEAK_F32 * 1e3
     log(f"cwt_direct bound at B=2 S={S} K={K} N={nfft}: {bound:.4f} ms ({by}; "
-        f"{nbytes:.4e} bytes, {ops:.4e} flops on the FFT route); the direct "
-        f"DFT's own {direct_ops:.4e} flops take {algorithm_ms:.4f} ms at the f32 peak")
+        f"{nbytes:.4e} bytes, {ops:.4e} flops on the FFT route)")
     log(f"4,000-point WCT pair (nfft 4096, {S} scales): routes agree {agree:.3e}; "
         f"_wct_core default (K1+K2) {core[False]:.4f} ms, opt-in (cwt_direct) "
         f"{core[True]:.4f} ms; launches default {counts[False]}, opt-in {counts[True]}")
-    log(f"(2, {K}) half spectra, {S} scales: cwt_direct {ms_direct:.4f} ms, "
-        f"cwt_stage_a+cwt_stage_b {ms_four:.4f} ms, plain cwt_direct {plain_ms:.4f} ms, "
-        f"torch.fft.ifft of the filtered (2, {S}, {nfft}) product {lib_ms:.4f} ms, "
-        f"complex torch.matmul (2, {S}, {K}) @ ({K}, {nfft}) {matmul_ms:.4f} ms; "
-        f"cwt_direct vs plain {err:.3e} (tol {tol:.3e})")
+    log(f"(2, {K}) half spectra, {S} scales, device time per call: cwt_direct "
+        f"{ms_direct:.4f} ms ({100 * bound / ms_direct:.1f} % of its bound; one call "
+        f"under CUDA events {wall_ms:.4f} ms), cwt_stage_a+cwt_stage_b {ms_four:.4f} ms, "
+        f"plain cwt_direct {plain_ms:.4f} ms, torch.fft.ifft of the filtered "
+        f"(2, {S}, {nfft}) product {lib_ms:.4f} ms; cwt_direct vs plain {err:.3e} "
+        f"(tol {tol:.3e})")
     return dict(launches=counts[True]["cwt_direct"], err=err, tol=tol, ms=ms_direct,
-                plain_ms=plain_ms, bound=bound, by=by, lib_ms=lib_ms,
-                matmul_ms=matmul_ms, ms_four=ms_four, core=core, agree=agree,
-                bytes=nbytes, ops=ops, algorithm_ms=algorithm_ms, S=S)
+                wall_ms=wall_ms, plain_ms=plain_ms, bound=bound, by=by, lib_ms=lib_ms,
+                ms_four=ms_four, core=core, agree=agree, bytes=nbytes, ops=ops, S=S)
 
 
 def phase_direct_sizes():
-    """Both routes at nfft 2^8, 2^10, 2^12: a half spectrum of one signal
-    and S = 12·log2(nfft/4) + 1 scales (a dj = 1/12 grid's count)."""
+    """Both routes at every nfft from 2^8 to 2^12, by device time per call: a
+    half spectrum of one signal and S = 12·log2(nfft/4) + 1 scales (a dj =
+    1/12 grid's count), planes; the ifft yardstick and the bound beside."""
     import pycwt_torch as pt
     from pycwt_torch.ops import fused_cwt as fc
 
@@ -649,13 +673,21 @@ def phase_direct_sizes():
     for nfft in DIRECT_SIZES:
         S = int(round(math.log2(nfft / 4) * 12)) + 1
         sr, si, sc = _inputs(nfft, True, 1, S, seed=nfft)
+        full_r, full_i, _ = _inputs(nfft, False, 1, S, seed=nfft)   # the same signal
         kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0)
+        prod = _filtered_product(full_r, full_i, sc, kw["mother"], nfft, 1.0)
+        bound, _ = _bound_ms(*_direct_bound(1, S, nfft // 2, nfft))
         rows[nfft] = dict(
-            S=S, direct=time_ms(lambda: fc.cwt_direct(sr, si, sc, **kw)),
-            four=time_ms(lambda: fc.stage_b(*fc.stage_a(sr, si, sc, **kw),
-                                            nfft=nfft, output="planes")))
-    log("cwt_direct vs cwt_stage_a+cwt_stage_b, one half spectrum, planes: " +
-        "; ".join(f"nfft {n} S {r['S']}: {r['direct']:.4f} vs {r['four']:.4f} ms"
+            S=S, direct=device_ms(lambda: fc.cwt_direct(sr, si, sc, **kw)),
+            four=device_ms(lambda: fc.stage_b(*fc.stage_a(sr, si, sc, **kw),
+                                              nfft=nfft, output="planes")),
+            ifft=device_ms(lambda: torch.fft.ifft(prod, dim=-1)),
+            wall=time_ms(lambda: fc.cwt_direct(sr, si, sc, **kw)), bound=bound)
+    log("device ms per call, one half spectrum, planes: cwt_direct vs "
+        "cwt_stage_a+cwt_stage_b vs torch.fft.ifft of the product (bound; cwt_direct "
+        "under CUDA events): " +
+        "; ".join(f"nfft {n} S {r['S']}: {r['direct']:.4f} vs {r['four']:.4f} vs "
+                  f"{r['ifft']:.4f} ({r['bound']:.4f}; {r['wall']:.4f})"
                   for n, r in rows.items()))
     return rows
 
@@ -721,12 +753,12 @@ def main():
              replaces="pycwt_tpu/ops/pallas_fft.py:360",
              tpu_kernel="_make_kernel_direct (K3)", launches=real["launches"],
              max_abs_err=real["err"], tolerance=real["tol"], ms=real["ms"],
+             ms_by="torch.profiler device time per call", wall_ms=real["wall_ms"],
              plain_ms=real["plain_ms"], bound_ms=real["bound"], bound_by=real["by"],
-             bound_ops=real["ops"], bound_bytes=real["bytes"],
-             algorithm_ops_ms=real["algorithm_ms"], library_ms=real["lib_ms"],
+             bound_share=real["bound"] / real["ms"],
+             bound_ops=real["ops"], bound_bytes=real["bytes"], library_ms=real["lib_ms"],
              library_call=f"torch.fft.ifft of the filtered (2, {real['S']}, 4096) "
-                          "complex64 product",
-             matmul_ms=real["matmul_ms"], four_step_ms=real["ms_four"],
+                          "complex64 product", four_step_ms=real["ms_four"],
              max_rel_err_by_tier=worst_direct, planes_err_vs_f64=direct_vs_f64,
              shape=f"B=2, K=2048, N=4096, S={real['S']}, Morlet-6, planes", card=card),
     ]
@@ -734,8 +766,8 @@ def main():
                     "sample_scales_per_s": bench["rate"],
                     "wct_core_ms": {"default": real["core"][False],
                                     "cwt_direct": real["core"][True]},
-                    "direct_vs_four_step_ms": {str(n): [r["direct"], r["four"]]
-                                               for n, r in sizes.items()},
+                    "direct_vs_four_step_vs_ifft_device_ms": {
+                        str(n): [r["direct"], r["four"], r["ifft"]] for n, r in sizes.items()},
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,8 +37,8 @@ _SIGNATURES = {
         "cwt_stage_b": ([_V, _V, _V, _V, _LL, _I, _I, _I, _I, _F, _V], _I),
     },
     "direct_cwt": {
-        "cwt_direct": ([_V, _V, _LL, _V, _V, _V, _I, _I, _I, _I, _I, _I,
-                        _F, _I, _F, _F, _F, _F, _V], _I),
+        "cwt_direct": ([_V, _V, _LL, _V, _V, _V, _I, _I, _I, _I, _I, _F,
+                        _I, _F, _F, _F, _F, _I, _I, _I, _I, _V], _I),
     },
 }
 

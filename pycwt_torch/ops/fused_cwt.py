@@ -18,15 +18,20 @@ plain version (:func:`_stage_a_reference`, :func:`_stage_b_reference`) with
 the kernel's exact layout, so the four-step split is checked on the CPU.
 
 For nfft ≤ 2^12, ``small_kernel=True`` (or ``PYCWT_TPU_SMALL_KERNEL=1``)
-selects the JAX package's opt-in direct-DFT kernel ``_make_kernel_direct``
-instead, ported as ``cwt_direct`` (``csrc/direct_cwt.cu``):
+selects the JAX package's opt-in small-nfft kernel ``_make_kernel_direct``
+instead, ported as ``cwt_direct`` (``csrc/direct_cwt.cu``) for the same
+function
 
     W[s, t] = (1/N) Σ_{k<K} X[k]·H̄_s[k] e^{2πi·kt/N},  K = N or (analytic) N/2
 
-with its plain version :func:`_direct_reference` (the filtered (B, S, K)
-product, then a complex matmul against the (K, N) DFT matrix), which a CPU
-tensor runs on that route.  Above 2^12 the option is ignored and the two
-kernels run, as in the JAX package.
+which the TPU ran as a direct DFT and the CUDA kernel runs as one on-chip
+inverse FFT per row: filter, Stockham passes of the radices in
+:func:`_direct_radix_plan`, 1/N and the epilogue, in one launch.  Its plain
+version :func:`_direct_reference` keeps the TPU's formulation (a complex
+matmul against the (K, N) DFT matrix) and runs for a CPU tensor on that
+route; :func:`_direct_stockham_reference` mirrors the kernel's passes for
+the tests.  Above 2^12 the option is ignored and the two kernels run, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -48,10 +53,11 @@ KERNEL_LAUNCHES = {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0}
 #: Largest nfft that ``small_kernel`` routes to ``cwt_direct``
 #: (``pycwt_tpu/ops/pallas_fft.py:73``).
 _SMALL_KERNEL_MAX = 1 << 12
-#: cwt_direct's block tile: scales × times (kTileS, kTileT in csrc/direct_cwt.cu)
-_DIRECT_TILE = (32, 64)
+#: cwt_direct's block holds at least this many points: whole rows, 1024/nfft
+#: of them below 1024 (kMinPoints in csrc/direct_cwt.cu)
+_DIRECT_BLOCK_POINTS = 1024
 
-#: epilogue -> the kernel's mode id (enum Mode in csrc/fused_cwt.cu)
+#: epilogue -> the kernels' mode id (enum Mode in csrc/fused_cwt.cu, direct_cwt.cu)
 _MODES = {"planes": 0, "power": 1, "power_sum": 2}
 
 #: Shared memory a block aims to stay under (two blocks fit on one SM), and
@@ -143,14 +149,10 @@ def _fused_cwt_planar_reference(sr, si, scales, *, mother: Mother, nfft: int,
     return _epilogue(W.real, W.imag, output)
 
 
-def _direct_reference(sr, si, scales, *, mother: Mother, nfft: int,
-                      dt: float, output: str = "planes"):
-    """Kernel K3's function in PyTorch, in the kernel's formulation and the
-    dtype given: the filtered ``(..., S, K)`` product of the first K bins
-    (K = nfft/2 for analytic mothers, even of a full spectrum; negative bins
-    folded when K = nfft), then a complex ``torch.matmul`` with the (K, nfft)
-    matrix E[k, t] = e^{2πi·kt/N}, built in f64 and cast, over N.
-    Differentiable."""
+def _direct_filtered(sr, si, scales, *, mother: Mother, nfft: int, dt: float):
+    """Kernel K3's filtered ``(..., S, K)`` product X[k]·H̄_s[k] of the first
+    K bins (K = nfft/2 for analytic mothers, even of a full spectrum;
+    negative bins folded when K = nfft), complex in the dtype given."""
     K = nfft // 2 if _is_analytic(mother) else nfft
     dev, rdt = sr.device, sr.dtype
     k = torch.arange(K, device=dev)
@@ -162,10 +164,64 @@ def _direct_reference(sr, si, scales, *, mother: Mother, nfft: int,
     cbar = complex(mother.psi_ft_const()).conjugate()
     h = torch.complex(norm * env * cbar.real, norm * env * cbar.imag)
     x = torch.complex(sr[..., :K], si[..., :K])
-    kt = (k[:, None] * torch.arange(nfft, device=dev)[None, :]) % nfft
-    E = torch.polar(torch.ones((), dtype=torch.float64, device=dev),
-                    (2.0 * math.pi / nfft) * kt.to(torch.float64)).to(h.dtype)
-    W = torch.matmul(x[..., None, :] * h, E) / nfft
+    return x[..., None, :] * h
+
+
+def _roots(idx, n: int, dtype):
+    """e^{2πi·idx/n}, built in f64 and cast to the complex ``dtype``."""
+    return torch.polar(torch.ones((), dtype=torch.float64, device=idx.device),
+                       (2.0 * math.pi / n) * idx.to(torch.float64)).to(dtype)
+
+
+def _direct_reference(sr, si, scales, *, mother: Mother, nfft: int,
+                      dt: float, output: str = "planes"):
+    """Kernel K3's function in PyTorch, in the TPU kernel's formulation and
+    the dtype given: the filtered product of :func:`_direct_filtered`, then a
+    complex ``torch.matmul`` with the (K, nfft) matrix E[k, t] = e^{2πi·kt/N},
+    built in f64 and cast, over N.  Differentiable."""
+    y = _direct_filtered(sr, si, scales, mother=mother, nfft=nfft, dt=dt)
+    k = torch.arange(y.shape[-1], device=sr.device)
+    E = _roots((k[:, None] * torch.arange(nfft, device=sr.device)[None, :]) % nfft,
+               nfft, y.dtype)
+    W = torch.matmul(y, E) / nfft
+    return _epilogue(W.real, W.imag, output)
+
+
+def _direct_radix_plan(nfft: int) -> tuple[int, ...]:
+    """Radices of ``cwt_direct``'s Stockham passes: 16·16 at 2^8, and a third
+    pass of radix nfft/256 (2, 4, 8, 16) from 2^9 to 2^12."""
+    if not supported_nfft(nfft) or nfft > _SMALL_KERNEL_MAX:
+        raise ValueError(f"cwt_direct serves pow-2 nfft in [2^8, 2^12], got {nfft}")
+    return (16, 16) if nfft == 256 else (16, 16, nfft // 256)
+
+
+def _stockham_pass(x, R: int, Ns: int):
+    """One of ``cwt_direct``'s passes on complex rows ``x`` (..., N) whose
+    points are combined in groups of Ns: butterfly j reads x[j + r·N/R],
+    multiplies by e^{2πi·(j mod Ns)·r/(Ns·R)}, takes the R-point inverse DFT
+    and writes its output r to (j div Ns)·Ns·R + j mod Ns + r·Ns."""
+    N = x.shape[-1]
+    j = torch.arange(N // R, device=x.device)[:, None]
+    r = torch.arange(R, device=x.device)[None, :]
+    v = x[..., j + r * (N // R)] * _roots((j % Ns) * r, Ns * R, x.dtype)
+    v = v @ _roots((r.T * r) % R, R, x.dtype)
+    out = torch.empty_like(x)
+    out[..., (j // Ns) * Ns * R + j % Ns + r * Ns] = v
+    return out
+
+
+def _direct_stockham_reference(sr, si, scales, *, mother: Mother, nfft: int,
+                               dt: float, output: str = "planes"):
+    """Kernel K3's passes in PyTorch, for the tests: the filtered product of
+    :func:`_direct_filtered` with zeros above K, the Stockham passes of
+    :func:`_direct_radix_plan` in the kernel's order, 1/N, the epilogue."""
+    y = _direct_filtered(sr, si, scales, mother=mother, nfft=nfft, dt=dt)
+    y = torch.cat([y, y.new_zeros(y.shape[:-1] + (nfft - y.shape[-1],))], dim=-1)
+    Ns = 1
+    for R in _direct_radix_plan(nfft):
+        y = _stockham_pass(y, R, Ns)
+        Ns *= R
+    W = y / nfft
     return _epilogue(W.real, W.imag, output)
 
 
@@ -300,40 +356,46 @@ def stage_b(tr, ti, *, nfft: int, output: str):
     return out0 if output == "power" else out1
 
 
-def cwt_direct(sr, si, scales, *, mother: Mother, nfft: int, dt: float):
+def cwt_direct(sr, si, scales, *, mother: Mother, nfft: int, dt: float,
+               output: str = "planes"):
     """Kernel K3: ``(B, n_in)`` planar spectra and ``(S,)`` scales → W planes
-    ``(B, S, nfft)`` f32, for pow-2 nfft in [2^8, 2^12].  CPU tensors run
-    :func:`_direct_reference`."""
+    ``(B, S, nfft)`` ×2, |W|² ``(B, S, nfft)`` or Σ_t |W|² ``(B, S)``, f32,
+    for pow-2 nfft in [2^8, 2^12]: one launch, an on-chip inverse FFT per
+    row with the epilogue inside.  CPU tensors run :func:`_direct_reference`."""
     if _check_device(sr) == "cpu":
-        return _direct_reference(sr, si, scales, mother=mother, nfft=nfft, dt=dt)
+        return _direct_reference(sr, si, scales, mother=mother, nfft=nfft, dt=dt,
+                                 output=output)
     from ._build import library
 
     B, n_in = sr.shape
     K = nfft // 2 if _is_analytic(mother) else nfft
     if (not supported_nfft(nfft) or nfft > _SMALL_KERNEL_MAX
             or n_in not in (nfft, nfft // 2) or n_in < K
-            or si.shape != sr.shape or scales.ndim != 1):
-        raise ValueError(f"spectra {tuple(sr.shape)}/{tuple(si.shape)} and scales "
-                         f"{tuple(scales.shape)} do not fit cwt_direct at "
-                         f"nfft={nfft} (2^8..2^12; K={K} bins)")
+            or si.shape != sr.shape or scales.ndim != 1 or output not in _MODES):
+        raise ValueError(f"spectra {tuple(sr.shape)}/{tuple(si.shape)}, scales "
+                         f"{tuple(scales.shape)} and output {output!r} do not fit "
+                         f"cwt_direct at nfft={nfft} (2^8..2^12; K={K} bins)")
+    plan = _direct_radix_plan(nfft)
     sr = sr.to(torch.float32).contiguous()
     si = si.to(device=sr.device, dtype=torch.float32).contiguous()
     scales = scales.to(device=sr.device, dtype=torch.float32).contiguous()
     S = scales.shape[0]
-    _check_grid(B * -(-S // _DIRECT_TILE[0]) * (nfft // _DIRECT_TILE[1]))
+    _check_grid(-(-B * S // max(1, _DIRECT_BLOCK_POINTS // nfft)))
     kind, f0, m = _mother_args(mother)
     cbar = complex(mother.psi_ft_const()).conjugate()
-    wr = torch.empty((B, S, nfft), dtype=torch.float32, device=sr.device)
-    wi = torch.empty_like(wr)
+    shape = (B, S) if output == "power_sum" else (B, S, nfft)
+    out0 = torch.empty(shape, dtype=torch.float32, device=sr.device)
+    out1 = torch.empty_like(out0) if output == "planes" else None
     with torch.cuda.device(sr.device):
         err = library("direct_cwt").cwt_direct(
             sr.data_ptr(), si.data_ptr(), n_in, scales.data_ptr(),
-            wr.data_ptr(), wi.data_ptr(), B, S, nfft, K, int(K == nfft),
-            kind, f0, m, cbar.real, cbar.imag, float(dt),
-            2.0 * math.pi / (nfft * dt), torch.cuda.current_stream().cuda_stream)
+            out0.data_ptr(), None if out1 is None else out1.data_ptr(),
+            B, S, nfft, K, kind, f0, m, cbar.real, cbar.imag, float(dt),
+            2.0 * math.pi / (nfft * dt), _MODES[output], *plan, *(1,) * (3 - len(plan)),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cwt_direct")
     KERNEL_LAUNCHES["cwt_direct"] += 1
-    return wr, wi
+    return (out0, out1) if output == "planes" else out0
 
 
 class _FusedCWT(torch.autograd.Function):
@@ -372,16 +434,17 @@ class _FusedCWT(torch.autograd.Function):
 
 
 class _FusedDirect(_FusedCWT):
-    """Forward: kernel K3 (``cwt_direct``), then the epilogue in PyTorch, as
-    the JAX package runs it after the kernel.  Backward: inherited, the
-    gradient of the plain version."""
+    """Forward: kernel K3 (``cwt_direct``) with the epilogue inside the
+    kernel (the JAX package runs it after its kernel; the results agree
+    within the tier bounds).  Backward: inherited, the gradient of the plain
+    version."""
 
     @staticmethod
     def forward(ctx, sr, si, scales, mother, nfft, dt, output):
         ctx.save_for_backward(sr, si, scales)
         ctx.params = (mother, nfft, dt, output)
-        return _epilogue(*cwt_direct(sr, si, scales, mother=mother, nfft=nfft,
-                                     dt=dt), output)
+        return cwt_direct(sr, si, scales, mother=mother, nfft=nfft, dt=dt,
+                          output=output)
 
 
 def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
@@ -399,7 +462,7 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
     ``precision`` tiers currently run the same f32 kernels.
 
     ``small_kernel=True`` (or, when it is None, ``PYCWT_TPU_SMALL_KERNEL=1``)
-    runs the direct-DFT kernel ``cwt_direct`` for nfft ≤ 2^12 and is ignored
+    runs the one-launch kernel ``cwt_direct`` for nfft ≤ 2^12 and is ignored
     above, as in the JAX package; on a CPU tensor its plain version runs.
     """
     if small_kernel is None:

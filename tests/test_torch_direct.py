@@ -1,8 +1,11 @@
 """Kernel K3 of the port (cwt_direct, ops/fused_cwt.py) on the CPU: its plain
 version against pycwt_tpu's direct-DFT Pallas kernel run in interpret mode
 (as tests/test_pallas.py runs it), against the plain full-bank transform,
-the small_kernel dispatch (K3 only for nfft ≤ 2^12, as pallas_fft.py:609),
-and the gradient of its autograd Function."""
+the mirror of the CUDA kernel's Stockham passes against both, the
+small_kernel dispatch (K3 only for nfft ≤ 2^12, as pallas_fft.py:609), and
+the gradient of its autograd Function."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +39,8 @@ def _spectrum(nfft, half, seed=0, batch=()):
 
 
 @pytest.mark.parametrize("spec", range(len(SPECTRA)), ids=SIDS)
-@pytest.mark.parametrize("nfft", [1 << 8, 1 << 10, 1 << 12], ids=["2^8", "2^10", "2^12"])
+@pytest.mark.parametrize("nfft", [1 << p for p in range(8, 13)],
+                         ids=[f"2^{p}" for p in range(8, 13)])
 def test_direct_reference_matches_jax_small_kernel(nfft, spec):
     """f32 on both sides, 1e-5 of max|W|: the `highest` bound of
     tests/test_pallas.py:55 for the same kernel."""
@@ -74,6 +78,47 @@ def test_direct_reference_matches_plain_transform(spec):
             got, ref = torch.complex(*got), torch.complex(*ref)
         assert got.shape == ref.shape
         assert float((got - ref).abs().max()) <= bound * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("spec", range(len(SPECTRA)), ids=SIDS)
+@pytest.mark.parametrize("nfft", [1 << p for p in range(8, 13)],
+                         ids=[f"2^{p}" for p in range(8, 13)])
+def test_stockham_mirror_matches_references(nfft, spec):
+    """The CUDA kernel's passes (radices, twiddle indices, output order),
+    mirrored in PyTorch, against the direct-DFT plain version and against
+    torch.fft.ifft of the same filtered product: f64 within 1e-12 and f32
+    within 2e-6 of max|W|, for each output."""
+    _, t, half = SPECTRA[spec]
+    for dtype, bound in ((torch.float64, 1e-12), (torch.float32, 2e-6)):
+        sr, si = (p.to(dtype) for p in _spectrum(nfft, half, seed=nfft, batch=(2,)))
+        kw = dict(mother=t, nfft=nfft, dt=0.5)
+        sc = torch.tensor(SCALES, dtype=dtype)
+        y = fc._direct_filtered(sr, si, sc, **kw)
+        W = torch.fft.ifft(torch.cat([y, y.new_zeros(y.shape[:-1] + (nfft - y.shape[-1],))],
+                                     dim=-1), dim=-1)
+        for output in ("planes", "power", "power_sum"):
+            got = fc._direct_stockham_reference(sr, si, sc, output=output, **kw)
+            refs = (fc._direct_reference(sr, si, sc, output=output, **kw),
+                    fc._epilogue(W.real, W.imag, output))
+            for ref in refs:
+                if output == "planes":
+                    g, r = torch.complex(*got), torch.complex(*ref)
+                else:
+                    g, r = got, ref
+                assert g.shape == r.shape and g.dtype == r.dtype
+                assert float((g - r).abs().max()) <= bound * float(r.abs().max()), \
+                    (dtype, output)
+
+
+def test_direct_radix_plan():
+    """16·16 at 2^8, then a third pass of nfft/256; nothing outside 2^8..2^12."""
+    for p in range(8, 13):
+        plan = fc._direct_radix_plan(1 << p)
+        assert plan[:2] == (16, 16) and math.prod(plan) == 1 << p
+        assert len(plan) == (2 if p == 8 else 3)
+    for nfft in (128, 768, 1 << 13):
+        with pytest.raises(ValueError):
+            fc._direct_radix_plan(nfft)
 
 
 def test_small_kernel_ignored_above_2_12(monkeypatch):

@@ -1,6 +1,7 @@
 """The CUDA kernel cwt_direct (kernel K3) against its plain PyTorch version on
-the card, the batch and counter contracts, the gradient, and the WCT slice
-on K3's route.  They need an NVIDIA card and nvcc, so they skip where there
+the card at every nfft from 2^8 to 2^12, each output from the kernel's own
+epilogue, ragged scale counts and batches, the batch and counter contracts,
+the gradient, and the WCT slice on K3's route.  They need an NVIDIA card and nvcc, so they skip where there
 is none; ``python -m pytest --noconftest tests/test_torch_direct_cuda.py``
 on the card runs them."""
 import os
@@ -46,9 +47,9 @@ def _rel_err(a, b):
 
 @pytest.mark.parametrize("tier", sorted(TIER_BOUND))
 @pytest.mark.parametrize("output", ["planes", "power", "power_sum"])
-@pytest.mark.parametrize("pow2", [8, 10, 12])
+@pytest.mark.parametrize("pow2", [8, 9, 10, 11, 12])
 def test_cwt_direct_matches_plain_version(cuda, pow2, output, tier):
-    """37 scales: not a multiple of the 32-scale tile."""
+    """37 scales: a ragged last block where rows share one (nfft < 2^10)."""
     nfft = 1 << pow2
     for m in MOTHERS:
         for half in (False, True) if m.analytic_negligible_negative() else (False,):
@@ -66,19 +67,51 @@ def test_cwt_direct_matches_plain_version(cuda, pow2, output, tier):
             assert float(err) <= TIER_BOUND[tier] * float(scale), (m, half)
 
 
-@pytest.mark.parametrize("output", ["planes", "power"])
+@pytest.mark.parametrize("output", ["planes", "power", "power_sum"])
 def test_batch_equals_single_signals_bitwise(cuda, output):
-    nfft = 1 << 12
-    sr, si, sc = _inputs(nfft, False, 2, 133, cuda)
-    kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0, output=output,
-              small_kernel=True)
-    both = fc.fused_cwt_planar(sr, si, sc, **kw)
-    for b in range(2):
-        one = fc.fused_cwt_planar(sr[b], si[b], sc, **kw)
-        if output == "planes":
-            assert torch.equal(both[0][b], one[0]) and torch.equal(both[1][b], one[1])
-        else:
-            assert torch.equal(both[b], one)
+    """133 scales: at 2^8 and 2^9 a row of the second signal sits elsewhere
+    in its block than in a single call, and must give the same bits."""
+    for nfft in (1 << 8, 1 << 9, 1 << 12):
+        sr, si, sc = _inputs(nfft, False, 2, 133, cuda)
+        kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0, output=output,
+                  small_kernel=True)
+        both = fc.fused_cwt_planar(sr, si, sc, **kw)
+        for b in range(2):
+            one = fc.fused_cwt_planar(sr[b], si[b], sc, **kw)
+            if output == "planes":
+                assert torch.equal(both[0][b], one[0]) and torch.equal(both[1][b], one[1])
+            else:
+                assert torch.equal(both[b], one), nfft
+
+
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("S", [1, 7, 37, 133])
+def test_ragged_rows_every_output(cuda, S, B):
+    """cwt_direct called directly: any S and B, each output within the
+    `highest` bound of the plain version, at a size whose blocks hold four
+    rows, two rows and one row."""
+    for nfft, m, half in ((1 << 8, pt.Morlet(6), True), (1 << 9, pt.DOG(2), False),
+                          (1 << 12, pt.Paul(4), False)):
+        sr, si, sc = _inputs(nfft, half, B, S, cuda, seed=S + B)
+        kw = dict(mother=m, nfft=nfft, dt=1.0)
+        for output in ("planes", "power", "power_sum"):
+            got = fc.cwt_direct(sr, si, sc, output=output, **kw)
+            ref = fc._direct_reference(sr, si, sc, output=output, **kw)
+            if output == "planes":
+                got, ref = torch.complex(*got), torch.complex(*ref)
+            assert got.shape == ref.shape == ((B, S) if output == "power_sum" else (B, S, nfft))
+            assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), (nfft, output)
+
+
+def test_power_sum_matches_summed_power(cuda):
+    """The kernel's in-block Σ_t |W|² against its own |W|² summed by torch,
+    within f32 round-off of a 4,096-term sum (2e-6 relative)."""
+    for nfft in (1 << 8, 1 << 10, 1 << 12):
+        sr, si, sc = _inputs(nfft, False, 2, 37, cuda)
+        kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0)
+        total = fc.cwt_direct(sr, si, sc, output="power_sum", **kw)
+        summed = fc.cwt_direct(sr, si, sc, output="power", **kw).sum(-1)
+        torch.testing.assert_close(total, summed, rtol=2e-6, atol=0)
 
 
 def test_counters_and_dispatch(cuda, monkeypatch):
