@@ -15,13 +15,16 @@ just after:
   on the default route and on the ``PYCWT_TPU_SMALL_KERNEL=1`` route through
   ``cwt_direct``, against the goldens, and a 4,000-point WCT pair on both.
 
-It times K1 and K2 at the 2^20-point bench shape with CUDA events, and
-``cwt_direct``, the K1+K2 pair and the ``torch.fft.ifft`` yardstick at the
-K3 sizes by ``torch.profiler`` device time per call (CUDA-event times of
-one call stand beside them as ``wall_ms``).  It prints one JSON line of
-kernel numbers and, last, one JSON ``ok`` line.  Any failure raises: the exit code
-is then non-zero and no ``ok`` line is printed.  Without a CUDA device it
-exits non-zero at once.
+K1 and K2 are checked at every column radix plan from 16 to 2048 points
+(nfft 2^8 to 2^22), and lightly at 4096 and 8192 (2^24, 2^26).  It times K1
+and K2 at the 2^20-point bench shape with CUDA events and by
+``torch.profiler`` device time per call, each nfft's column plans beside
+K1's and K2's device time, and ``cwt_direct``, the K1+K2 pair and the
+``torch.fft.ifft`` yardstick at the K3 sizes by device time (CUDA-event
+times of one call stand beside them as ``wall_ms``).  It prints one JSON
+line of kernel numbers and, last, one JSON ``ok`` line.  Any failure raises:
+the exit code is then non-zero and no ``ok`` line is printed.  Without a
+CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -42,7 +45,11 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 #: precision tier -> bound relative to max|W| (tests/test_pallas.py:33, :198, :276)
 TIER_BOUND = {"highest": 1e-5, "high": 2e-4, "fast": 2e-2}
-SIZES = [1 << p for p in (8, 10, 13, 14, 16, 20)]
+#: nfft of the K1/K2 checks: every column plan from R = 16 to 2048 in both
+#: kernels (cwt_stage_a's length-R2 columns, cwt_stage_b's length-R1 ones)
+SIZES = [1 << p for p in (8, 9, 10, 11, 13, 14, 16, 18, 20, 22)]
+#: nfft whose columns are 4096 and 8192 points long: checked lightly
+LARGE_SIZES = [1 << 24, 1 << 26]
 DIRECT_SIZES = [1 << p for p in range(8, 13)]
 OUTPUTS = ("planes", "power", "power_sum")
 KERNEL_SOURCE = "pycwt_torch/csrc/fused_cwt.cu"
@@ -89,7 +96,7 @@ def time_ms(fn, runs=11, warmup=2):
     return float(np.median(times))
 
 
-def _device_rows(prof, calls):
+def _device_rows(prof, calls, required=True):
     """(ms per call, launches per call, name) of every device kernel in a
     torch.profiler run of ``calls`` calls; operators' rows, which repeat
     their kernels' time, are left out."""
@@ -103,24 +110,29 @@ def _device_rows(prof, calls):
         if e.device_type == DeviceType.CUDA and dev > 0:
             rows.append((dev / calls / 1e3, e.count / calls, e.key))
     rows.sort(reverse=True)
-    check(rows, "the profiler saw no device time")
+    check(rows or not required, "the profiler saw no device time")
     return rows
 
 
-def device_ms(fn, calls=50, warmup=3):
+def device_ms(fn, calls=50, warmup=3, tries=3):
     """Device time of one call of ``fn()``: the kernel times that
     torch.profiler (CUPTI) records over ``calls`` calls, summed, per call.
-    At these sizes a CUDA-event time around a call is mostly host time."""
+    At these sizes a CUDA-event time around a call is mostly host time.  A
+    profile that recorded no device activity at all (seen once in a few
+    hundred on the H100) is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(r[0] for r in _device_rows(prof, calls))
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = _device_rows(prof, calls, required=attempt == tries - 1)
+        if rows:
+            return sum(r[0] for r in rows)
 
 
 def _reset_counts():
@@ -150,6 +162,24 @@ def phase_device():
     return smi.splitlines()[0]
 
 
+def _ptxas_usage(out):
+    """(kernel, registers and spills) of each entry function in ``nvcc
+    -Xptxas -v`` output, the kernel named with its template argument."""
+    import re
+
+    rows, name = [], None
+    for ln in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"\d(cwt_[a-z_]+?)_kernel(?:ILi(\d+)E)?", m.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                    if k else m.group(1))
+            rows.append([name, ""])
+        elif name and ("spill" in ln or "registers" in ln):
+            rows[-1][1] += ln.replace("ptxas info    :", "").strip() + "; "
+    return rows
+
+
 def phase_build():
     from pycwt_torch.ops import _build
 
@@ -159,9 +189,9 @@ def phase_build():
         _build.library(name)
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, (secs, out) in _build.BUILD_LOG.items():
-        usage = [ln.strip() for ln in out.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log(f"  nvcc {name}: {secs:.2f} s; " + " | ".join(usage))
+        log(f"  nvcc {name}: done after {secs:.2f} s")
+        for kernel, usage in _ptxas_usage(out):
+            log(f"    {kernel}: {usage}")
 
 
 def _inputs(nfft, half, B, S, seed):
@@ -171,17 +201,21 @@ def _inputs(nfft, half, B, S, seed):
                      dtype=torch.float32, device="cuda")
     sr, si = fft_of_real_planar(x, nfft, half=half)
     # scales 2 .. 2·nfft^(3/4): DOG's f^m stays finite in f32
-    sc = 2.0 * 2 ** (np.arange(S) * (0.75 * math.log2(nfft) / (S - 1)))
+    sc = 2.0 * 2 ** (np.arange(S) * (0.75 * math.log2(nfft) / max(S - 1, 1)))
     return sr, si, torch.tensor(sc, dtype=torch.float32, device="cuda")
 
 
 def phase_kernels_vs_plain():
     """Every size, mother, spectrum, output and tier against the plain
-    version; B = 2 against two single-signal calls, bit for bit."""
+    version; B = 2 against two single-signal calls, bit for bit; the planes
+    of the kernels and of the f32 plain version against the plain version in
+    f64."""
     import pycwt_torch as pt
     from pycwt_torch.ops import fused_cwt as fc
 
     worst = {tier: 0.0 for tier in TIER_BOUND}
+    worst_at = ""
+    vs_f64 = {"kernels": 0.0, "plain": 0.0}
     mothers = [pt.Morlet(6), pt.Paul(4), pt.DOG(2), pt.DOG(6)]
     for nfft in SIZES:
         for m in mothers:
@@ -190,6 +224,8 @@ def phase_kernels_vs_plain():
                 kw = dict(mother=m, nfft=nfft, dt=1.0)
                 rr, ri = fc._fused_cwt_planar_reference(sr, si, sc, **kw)
                 scale_w = float(torch.sqrt(rr * rr + ri * ri).max())
+                t64 = torch.complex(*fc._fused_cwt_planar_reference(
+                    sr.double(), si.double(), sc.double(), **kw))
                 for output in OUTPUTS:
                     ref = fc._epilogue(rr, ri, output)
                     for tier in TIER_BOUND:
@@ -202,7 +238,14 @@ def phase_kernels_vs_plain():
                             err = float((got - ref).abs().max() / ref.abs().max())
                         check(math.isfinite(err) and err < TIER_BOUND[tier],
                               f"{nfft} {m} half={half} {output} {tier}: {err}")
-                        worst[tier] = max(worst[tier], err)
+                        if err > worst[tier]:
+                            worst[tier] = err
+                            worst_at = f"nfft {nfft} {m} half={half} {output}"
+                    if output == "planes":
+                        for key, w in (("kernels", got), ("plain", (rr, ri))):
+                            e = float((torch.complex(*w).to(t64.dtype) - t64).abs().max()
+                                      / t64.abs().max())
+                            vs_f64[key] = max(vs_f64[key], e)
                     singles = [fc.fused_cwt_planar(sr[b], si[b], sc, output=output, **kw)
                                for b in range(2)]
                     if output == "planes":
@@ -211,10 +254,37 @@ def phase_kernels_vs_plain():
                     else:
                         same = all(torch.equal(got[b], singles[b]) for b in range(2))
                     check(same, f"batch != singles at {nfft} {m} {output}")
-        log(f"kernels vs plain, nfft={nfft}: ok (worst so far {worst})")
+        log(f"kernels vs plain, nfft={nfft}: ok (worst so far {worst}, at {worst_at}; "
+            f"planes vs the f64 plain version: {vs_f64})")
     check(_four_step_only(fc.KERNEL_LAUNCHES),
           f"kernel counters did not advance: {fc.KERNEL_LAUNCHES}")
-    return worst
+    return worst, vs_f64
+
+
+def phase_large_columns():
+    """cwt_stage_a/cwt_stage_b on 4096- and 8192-point columns (nfft 2^24 and
+    2^26): one signal, one scale, Morlet-6, planes, against the plain
+    version at the `highest` bound."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+
+    errs = {}
+    for nfft in LARGE_SIZES:
+        sr, si, sc = _inputs(nfft, True, 1, 1, seed=nfft)
+        kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0)
+        rr, ri = fc._fused_cwt_planar_reference(sr, si, sc, **kw)
+        scale_w = float(torch.sqrt(rr * rr + ri * ri).max())
+        _reset_counts()
+        wr, wi = fc.fused_cwt_planar(sr, si, sc, precision="highest", **kw)
+        check(_four_step_only(fc.KERNEL_LAUNCHES), f"2^{nfft.bit_length() - 1}: "
+              f"{fc.KERNEL_LAUNCHES}")
+        err = max(float((wr - rr).abs().max()), float((wi - ri).abs().max())) / scale_w
+        check(math.isfinite(err) and err < TIER_BOUND["highest"], f"nfft {nfft}: {err}")
+        errs[nfft] = err
+        del rr, ri, wr, wi
+    log("large columns, planes vs plain (of max|W|): " +
+        ", ".join(f"nfft 2^{n.bit_length() - 1} {e:.3e}" for n, e in errs.items()))
+    return errs
 
 
 def phase_public_path():
@@ -322,7 +392,12 @@ def phase_bench_shape():
 
     ms_a = time_ms(lambda: fc.stage_a(*X2, scales, **kw))
     ms_b = time_ms(lambda: fc.stage_b(*T, nfft=N0, output="power_sum"))
+    dev_a = device_ms(lambda: fc.stage_a(*X2, scales, **kw), calls=20)
+    # cwt_stage_b's row: the kernel and its fixed-order reduce pass
+    dev_b = device_ms(lambda: fc.stage_b(*T, nfft=N0, output="power_sum"), calls=20)
     ms_pipe = time_ms(pipeline)
+    # the card's busy time per pipeline call (every kernel it launches)
+    dev_pipe = device_ms(pipeline, calls=20)
     plain_a = time_ms(lambda: fc._stage_a_reference(*X2, scales, **kw), runs=10, warmup=1)
     plain_b = time_ms(lambda: fc._stage_b_reference(*T, nfft=N0, output="power_sum"),
                       runs=10, warmup=1)
@@ -344,13 +419,15 @@ def phase_bench_shape():
     bound_b, by_b = _bound_ms(b_bytes, b_ops)
     rate = N0 * S / (ms_pipe * 1e-3)
     log(f"bench shape N=2^20 S=64 Morlet-6 power_sum tier={DEFAULT.precision}: "
-        f"pipeline {ms_pipe:.4f} ms ({rate:.4e} sample-scales/s), "
-        f"cwt_stage_a {ms_a:.4f} ms (bound {bound_a:.4f}), "
-        f"cwt_stage_b {ms_b:.4f} ms (bound {bound_b:.4f}), "
+        f"pipeline {ms_pipe:.4f} ms ({rate:.4e} sample-scales/s; device busy "
+        f"{dev_pipe:.4f} ms per call, {100 * dev_pipe / ms_pipe:.1f} %), "
+        f"cwt_stage_a {ms_a:.4f} ms (device {dev_a:.4f}, bound {bound_a:.4f}), "
+        f"cwt_stage_b {ms_b:.4f} ms (device {dev_b:.4f}, bound {bound_b:.4f}), "
         f"plain pipeline {plain_pipe:.4f} ms, cuFFT ifft of the product {lib_ms:.4f} ms, "
         f"pipeline vs plain {e_pipe:.3e}")
     return dict(
-        launches=launches, ms_a=ms_a, ms_b=ms_b, plain_a=plain_a, plain_b=plain_b,
+        launches=launches, ms_a=ms_a, ms_b=ms_b, dev_a=dev_a, dev_b=dev_b, dev_pipe=dev_pipe,
+        plain_a=plain_a, plain_b=plain_b,
         bound_a=bound_a, by_a=by_a, bound_b=bound_b, by_b=by_b, err_a=err_a,
         err_b=err_b, tol_a=tol_a, tol_b=tol_b, lib_ms=lib_ms, ms_pipe=ms_pipe,
         plain_pipe=plain_pipe, rate=rate, bytes_a=a_bytes, bytes_b=b_bytes)
@@ -692,6 +769,35 @@ def phase_direct_sizes():
     return rows
 
 
+def phase_column_plans():
+    """Counterpart of tools/tpu_radix_experiment.py: at each nfft of SIZES,
+    the radix plans of cwt_stage_a's length-R2 and cwt_stage_b's length-R1
+    columns beside each kernel's device time per call (one half spectrum,
+    16 scales, Morlet-6, planes)."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+
+    rows = {}
+    for nfft in SIZES:
+        R1, R2 = fc._nfft_factors(nfft)
+        sr, si, sc = _inputs(nfft, True, 1, 16, seed=nfft)
+        kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0)
+        T = fc.stage_a(sr, si, sc, **kw)
+        calls = 50 if nfft <= 1 << 16 else 10
+        rows[nfft] = dict(
+            plan_a=fc._column_radix_plan(R2), plan_b=fc._column_radix_plan(R1),
+            cols_a=fc._tile_cols(R2, R1), cols_b=fc._tile_cols(R1, R2),
+            a=device_ms(lambda: fc.stage_a(sr, si, sc, **kw), calls=calls),
+            b=device_ms(lambda: fc.stage_b(*T, nfft=nfft, output="planes"), calls=calls))
+        del T
+    log("column plans, device ms per call (one half spectrum, 16 scales, planes): " +
+        "; ".join(f"2^{n.bit_length() - 1}: cwt_stage_a R2 {'·'.join(map(str, r['plan_a']))} "
+                  f"x{r['cols_a']} {r['a']:.4f}, cwt_stage_b R1 "
+                  f"{'·'.join(map(str, r['plan_b']))} x{r['cols_b']} {r['b']:.4f}"
+                  for n, r in rows.items()))
+    return rows
+
+
 def phase_direct_gradient():
     """Gradients through cwt_direct's autograd Function equal the plain
     version's at nfft = 2^12 within 1e-4 (tests/test_autodiff.py:91-111)."""
@@ -722,7 +828,8 @@ def main():
     card = phase_device()
     t0 = time.perf_counter()
     phase_build()
-    worst = phase_kernels_vs_plain()
+    worst, four_step_vs_f64 = phase_kernels_vs_plain()
+    large = phase_large_columns()
     phase_public_path()
     bench = phase_bench_shape()
     phase_gradient()
@@ -731,23 +838,27 @@ def main():
     phase_slice_path(small=True)
     real = phase_real_size()
     sizes = phase_direct_sizes()
+    plans = phase_column_plans()
     phase_direct_gradient()
     common = dict(route="cuda", source=KERNEL_SOURCE, library_ms=bench["lib_ms"],
                   library_call="torch.fft.ifft of the filtered (64, 2^20) complex64 product",
-                  max_rel_err_by_tier=worst, shape="N=2^20, S=64, Morlet-6, power_sum",
-                  card=card)
+                  max_rel_err_by_tier=worst, planes_err_vs_f64=four_step_vs_f64,
+                  large_columns_err=large,
+                  shape="N=2^20, S=64, Morlet-6, power_sum", card=card)
     kernels = [
         dict(name="cwt_stage_a", replaces="pycwt_tpu/ops/pallas_fft.py:252",
              tpu_kernel="_make_kernel_a (K1)", launches=bench["launches"]["cwt_stage_a"],
              max_abs_err=bench["err_a"], tolerance=bench["tol_a"],
-             ms=bench["ms_a"], plain_ms=bench["plain_a"],
+             ms=bench["ms_a"], device_ms=bench["dev_a"], plain_ms=bench["plain_a"],
              bound_ms=bench["bound_a"], bound_by=bench["by_a"],
+             bound_share=bench["bound_a"] / bench["dev_a"],
              bound_bytes=bench["bytes_a"], **common),
         dict(name="cwt_stage_b", replaces="pycwt_tpu/ops/pallas_fft.py:289",
              tpu_kernel="_make_kernel_b (K2)", launches=bench["launches"]["cwt_stage_b"],
              max_abs_err=bench["err_b"], tolerance=bench["tol_b"],
-             ms=bench["ms_b"], plain_ms=bench["plain_b"],
+             ms=bench["ms_b"], device_ms=bench["dev_b"], plain_ms=bench["plain_b"],
              bound_ms=bench["bound_b"], bound_by=bench["by_b"],
+             bound_share=bench["bound_b"] / bench["dev_b"],
              bound_bytes=bench["bytes_b"], **common),
         dict(name="cwt_direct", route="cuda", source=DIRECT_SOURCE,
              replaces="pycwt_tpu/ops/pallas_fft.py:360",
@@ -762,12 +873,15 @@ def main():
              max_rel_err_by_tier=worst_direct, planes_err_vs_f64=direct_vs_f64,
              shape=f"B=2, K=2048, N=4096, S={real['S']}, Morlet-6, planes", card=card),
     ]
-    log(json.dumps({"pipeline_ms": bench["ms_pipe"], "plain_pipeline_ms": bench["plain_pipe"],
+    log(json.dumps({"pipeline_ms": bench["ms_pipe"], "pipeline_device_ms": bench["dev_pipe"],
+                    "plain_pipeline_ms": bench["plain_pipe"],
                     "sample_scales_per_s": bench["rate"],
                     "wct_core_ms": {"default": real["core"][False],
                                     "cwt_direct": real["core"][True]},
                     "direct_vs_four_step_vs_ifft_device_ms": {
                         str(n): [r["direct"], r["four"], r["ifft"]] for n, r in sizes.items()},
+                    "stage_a_vs_stage_b_device_ms": {
+                        str(n): [r["a"], r["b"]] for n, r in plans.items()},
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

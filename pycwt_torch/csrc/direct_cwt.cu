@@ -34,11 +34,12 @@
 //      half-warp reads 16 consecutive entries), pass 3's from the product of
 //      two tables of 64 and N/64 roots: a full N-entry table took longer to
 //      build in every block than the passes it fed.  Every entry is sincospif
-//      of an exact f32 argument.
+//      of an exact f32 argument.  The passes, the DFTs and the tables are
+//      fft_common.cuh's, shared with cwt_stage_a and cwt_stage_b.
 //   3. Epilogue.  The last pass writes straight to device memory: 1/N, then
 //      W planes or |W|^2 (coalesced along t), or Sigma_t |W|^2 summed in a
 //      fixed order (per thread, then a tree over the row's threads).
-// No fast-math intrinsics (expf, logf, sincospif), as in fused_cwt.cu.
+// No fast-math intrinsics (expf, logf, sincospif).
 //
 // Bound on the card: bytes.  At the WCT shape of a 4,000-point pair (B = 2,
 // S = 133, K = 2048, N = 4096, planes) the function reads 16 KB of X per
@@ -58,15 +59,13 @@
 
 #include <atomic>
 
+#include "fft_common.cuh"
+
 namespace {
 
-constexpr float kTwoPi = 6.283185307179586f;
 // Points per block at least: rows of shorter series share a block
 // (_DIRECT_BLOCK_POINTS in ops/fused_cwt.py).
 constexpr int kMinPoints = 1024;
-
-enum Mother { kMorlet = 0, kPaul = 1, kDog = 2 };
-enum Mode { kPlanes = 0, kPower = 1, kPowerSum = 2 };
 
 // The launch shape and shared memory of one size N = 2^LOG_N.
 template <int LOG_N>
@@ -81,148 +80,6 @@ struct Plan {
   static constexpr int kTw = 256 + (kLast > 1 ? 64 + kN / 64 : 0);   // twiddles
   static constexpr size_t kSmem = sizeof(float2) * (kData + kTw);
 };
-
-__device__ __forceinline__ float int_pow(float x, int m) {
-  float r = 1.0f;
-  float base = x;
-  while (m) {
-    if (m & 1) r *= base;
-    m >>= 1;
-    if (m) base *= base;
-  }
-  return r;
-}
-
-// Real envelope env(f) of the mother's spectrum (mothers.py), as fused_cwt.cu.
-__device__ __forceinline__ float envelope(int mother, float f, float f0, int m) {
-  if (mother == kMorlet) {
-    float d = f - f0;
-    return expf(-0.5f * (d * d));
-  }
-  if (mother == kPaul) {
-    return f > 0.0f ? expf((float)m * logf(f) - f) : 0.0f;
-  }
-  return int_pow(f, m) * expf(-0.5f * (f * f));
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// v * e^{+2 pi i q / 16} for 0 <= q < 8; 1 and i exactly.
-__device__ __forceinline__ float2 rot16(float2 v, int q) {
-  constexpr float c1 = 0.92387953251128674f;   // cos(pi/8)
-  constexpr float s1 = 0.38268343236508978f;   // sin(pi/8)
-  constexpr float h = 0.70710678118654752f;    // cos(pi/4)
-  switch (q) {
-    case 0: return v;
-    case 1: return cmul(v, make_float2(c1, s1));
-    case 2: return make_float2((v.x - v.y) * h, (v.x + v.y) * h);
-    case 3: return cmul(v, make_float2(s1, c1));
-    case 4: return make_float2(-v.y, v.x);
-    case 5: return cmul(v, make_float2(-s1, c1));
-    case 6: return make_float2(-(v.x + v.y) * h, (v.x - v.y) * h);
-    default: return cmul(v, make_float2(-c1, s1));
-  }
-}
-
-template <int R>
-__host__ __device__ constexpr int bit_reverse(int k) {
-  int out = 0;
-  for (int b = 1; b < R; b <<= 1) {
-    out = (out << 1) | (k & 1);
-    k >>= 1;
-  }
-  return out;
-}
-
-// Radix-2 decimation-in-frequency stages of span 2*HALF, down to 2.
-template <int R, int HALF>
-__device__ __forceinline__ void dif_stages(float2* v) {
-  if constexpr (HALF >= 1) {
-#pragma unroll
-    for (int g = 0; g < R; g += 2 * HALF) {
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        const float2 a = v[g + i], b = v[g + i + HALF];
-        v[g + i] = make_float2(a.x + b.x, a.y + b.y);
-        v[g + i + HALF] = rot16(make_float2(a.x - b.x, a.y - b.y), i * (8 / HALF));
-      }
-    }
-    dif_stages<R, HALF / 2>(v);
-  }
-}
-
-// dst[k] = src[bit_reverse(k)], with every index fixed at compile time.
-template <int R, int K = 0>
-__device__ __forceinline__ void unscramble(float2* dst, const float2* src) {
-  if constexpr (K < R) {
-    constexpr int j = bit_reverse<R>(K);
-    dst[K] = src[j];
-    unscramble<R, K + 1>(dst, src);
-  }
-}
-
-// In-register inverse DFT of R <= 16 points (positive exponent, unscaled),
-// in natural order: radix-2 decimation in frequency, then the bit reversal as
-// a renaming of registers.
-template <int R>
-__device__ __forceinline__ void dft(float2* v) {
-  dif_stages<R, R / 2>(v);
-  float2 t[R];
-  unscramble<R>(t, v);
-#pragma unroll
-  for (int k = 0; k < R; ++k) v[k] = t[k];
-}
-
-// Slot of point p of the block's rows: one pad in 16 keeps the stride-16
-// writes of the first pass off a single bank.
-__device__ __forceinline__ int pad(int p) { return p + (p >> 4); }
-
-// Twiddle e^{2 pi i c r / (NS R)} of a Stockham pass: for NS = 16 from the
-// table tw[r*16 + c] of 256th roots; for NS = 256 (NS R = N) as
-// lo[c r % 64] * hi[c r / 64], with lo[j] = w^j and hi[j] = w^{64 j},
-// w = e^{2 pi i / N}.
-template <int NS>
-__device__ __forceinline__ float2 twiddle(const float2* tw, int c, int r) {
-  if constexpr (NS == 16) {
-    return tw[r * 16 + c];
-  } else {
-    const int j = c * r;
-    return cmul(tw[256 + (j & 63)], tw[256 + 64 + (j >> 6)]);
-  }
-}
-
-// Stockham pass of radix R over the points already combined in groups of NS:
-// butterfly jj of a row (16/R of them per thread) reads x[jj + r*N/R],
-// multiplies by the twiddle of (jj % NS, r), and runs an R-point DFT; the
-// results stay in v for pass_store.
-template <int R, int NS, int N, int TR>
-__device__ __forceinline__ void pass_load(float2* v, const float2* buf, const float2* tw,
-                                          int base, int lt) {
-#pragma unroll
-  for (int q = 0; q < 16 / R; ++q) {
-    const int jj = lt + q * TR;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      v[q * R + r] = buf[pad(base + jj + r * (N / R))];
-      if (r > 0) v[q * R + r] = cmul(v[q * R + r], twiddle<NS>(tw, jj % NS, r));
-    }
-    dft<R>(v + q * R);
-  }
-}
-
-// Output r of butterfly jj goes to (jj / NS) * NS * R + jj % NS + r * NS.
-template <int R, int NS, int TR>
-__device__ __forceinline__ void pass_store(const float2* v, float2* buf, int base, int lt) {
-#pragma unroll
-  for (int q = 0; q < 16 / R; ++q) {
-    const int jj = lt + q * TR;
-    const int d = (jj / NS) * NS * R + jj % NS;
-#pragma unroll
-    for (int r = 0; r < R; ++r) buf[pad(base + d + r * NS)] = v[q * R + r];
-  }
-}
 
 template <int LOG_N>
 __global__ void __launch_bounds__(Plan<LOG_N>::kThreads)
@@ -242,7 +99,7 @@ cwt_direct_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const int tid = threadIdx.x;
   const int rho = tid / TR;       // row within the block
   const int lt = tid % TR;        // thread within the row
-  const int base = rho * N;
+  const int base = pad(rho * N);   // the row's first slot in buf
   const int row = blockIdx.x * P::kRows + rho;   // b * S + s
   const bool valid = row < rows;
 
@@ -269,21 +126,9 @@ cwt_direct_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     }
   }
 
-  // Twiddle tables (see twiddle()): tw[r*16 + c] = e^{2 pi i c r / 256},
-  // then lo and hi when there is a third pass.
-  for (int e = tid; e < P::kTw; e += P::kThreads) {
-    float arg;
-    if (e < 256) {
-      arg = (float)(2 * (e & 15) * (e >> 4)) / 256.0f;
-    } else if (e < 256 + 64) {
-      arg = (float)(2 * (e - 256)) / (float)N;
-    } else {
-      arg = (float)(2 * 64 * (e - 256 - 64)) / (float)N;
-    }
-    float sn, cs;
-    sincospif(arg, &sn, &cs);
-    tw[e] = make_float2(cs, sn);
-  }
+  // Twiddle tables (fill_twiddles in fft_common.cuh): 256th roots, then lo
+  // and hi when there is a third pass.
+  fill_twiddles(tw, N, P::kTw, tid, P::kThreads);
 
   float2 v[16];
 #pragma unroll

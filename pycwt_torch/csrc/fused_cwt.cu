@@ -8,252 +8,240 @@
 //   T[a, c] = Z[a, c] e^{+2 pi i a c / N}                   (cwt_stage_a)
 //   W[c + R2*d] = (1/N) sum_a T[a, c] e^{+2 pi i a d / R1} (cwt_stage_b)
 //
-// Both stages keep one tile of columns in shared memory and run an in-place
-// radix-2 FFT (bit-reversed load, decimation in time) per column in f32.
-// No fast-math intrinsics: __expf/__sinf lose the 1e-5 bound at large s*omega.
-//
 // cwt_stage_a replaces _make_kernel_a (pallas_fft.py:252-286, launched at
-// :720-727).  One block per (signal*scale row, tile of consecutive columns a):
-// it builds Hbar_s for its tile in registers, multiplies planar X (rows
-// b < R2/2 only for analytic mothers, as K1 does), runs the length-R2 FFTs,
-// applies the twiddle and writes T[row, a, c] coalesced along c.
-// Bound on the card: bytes.  At N = 2^20, S = 64 it reads 4.2 MB of half
-// planar X and writes 536.9 MB of planar f32 T (about 0.16 ms at 3.35 TB/s);
-// its f32 arithmetic is below a tenth of a millisecond at 67 TFLOP/s.
+// :720-727), cwt_stage_b replaces _make_kernel_b (pallas_fft.py:289-325,
+// launched at :749-761).  T keeps the TPU kernels' layout (rows, R1, R2).
 //
-// cwt_stage_b replaces _make_kernel_b (pallas_fft.py:289-325, launched at
-// :749-761).  One block per (row, tile of consecutive c): it loads T[row, :,
-// c-tile], runs the length-R1 FFTs, scales by 1/N and writes W planes, |W|^2,
-// or per-block partial sums of |W|^2 that a second, fixed-order pass reduces
-// (no float atomics, so a batch gives the same bits as one signal at a time).
-// Bound on the card: bytes.  It reads the 536.9 MB of T (about 0.16 ms) and
-// writes 268.4 MB more for |W|^2 or 536.9 MB more for the planes.
+// Bound on the card: bytes.  At N = 2^20, S = 64, cwt_stage_a reads 4.2 MB of
+// half planar X and writes 536.9 MB of planar f32 T, and cwt_stage_b reads
+// the 536.9 MB of T and writes 256 B of sums (power_sum), 268.4 MB of |W|^2
+// or 536.9 MB of planes: about 0.16 ms each at 3.35 TB/s.  Their f32
+// arithmetic is below a tenth of a millisecond at 67 TFLOP/s.
 //
-// The design's cost is the round trip of T through device memory (write in
-// stage A, read in stage B): twice the bytes of a single-pass kernel.  Keeping
-// T on chip is left for a later change.
+// Design: both kernels run column_stockham (fft_common.cuh).  A block owns
+// `cols` whole columns of R points (R = R2 in stage A, R1 in stage B) and
+// R/16 threads per column, 16 points each: 512 threads and ~70 KB of shared
+// memory at R = 1024 (ops/fused_cwt.py's _tile_cols), two blocks per SM.
+// Each column lies contiguous in shared memory, padded one slot in 16, at a
+// column stride chosen so that the accesses that cross columns hit 16
+// distinct bank pairs in every half-warp (column_ld).  The radix plan is
+// 16 | 16*RL | 16*16*RL | 16*16*16*2 with a last radix RL of 2, 4, 8 or 16
+// (three passes and three barriers at R = 1024, where a radix-2 FFT took ten
+// shared-memory round trips): the first pass is fed from device memory
+// straight into registers, and the last pass feeds the epilogue straight
+// from registers.  The threads map to (column, point) per pass:
+// column-fastest where the pass touches device memory along the columns
+// (both first passes, stage B's last pass: its loads run along a or c, its
+// W stores along t), point-fastest elsewhere (stage A's last pass stores T
+// along c in whole 128-byte lines).
+//   cwt_stage_a: one block per (signal*scale row, tile of consecutive a).
+//     The first pass loads its 16 bins of X (rows b < R2/2 only for analytic
+//     mothers, as K1 does), builds Hbar_s in registers and multiplies; the
+//     last pass applies e^{2 pi i a c / N}, as the product of at most three
+//     roots (sincospif of exact arguments) that each thread computes once
+//     for all its points, and writes T[row, a, c].
+//   cwt_stage_b: one block per (row, tile of consecutive c).  The first pass
+//     loads T[row, a, c-tile] (32-byte segments at cols = 8); the last pass
+//     scales by 1/N and writes W planes, |W|^2, or per-block partial sums of
+//     |W|^2 (per thread, then a fixed tree over the block) that a second,
+//     fixed-order pass reduces: no float atomics, so a batch gives the same
+//     bits as one signal at a time.
+// The cost left in the design is the round trip of T through device memory
+// (written by stage A, read by stage B): twice the bytes of a single pass.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include <atomic>
+
+#include "fft_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr float kTwoPi = 6.283185307179586f;
+// Threads of a block at most: cols * R / 16 <= 512, i.e. cols * R <= 8192
+// (_BLOCK_POINTS in ops/fused_cwt.py); two such blocks fit on one SM.
+constexpr int kMaxThreads = 512;
+constexpr int kMinBlocks = 2;
+constexpr int kReduceThreads = 256;
 
-enum Mother { kMorlet = 0, kPaul = 1, kDog = 2 };
-enum Mode { kPlanes = 0, kPower = 1, kPowerSum = 2 };
-
-__device__ __forceinline__ float int_pow(float x, int m) {
-  float r = 1.0f;
-  float base = x;
-  while (m) {
-    if (m & 1) r *= base;
-    m >>= 1;
-    if (m) base *= base;
-  }
-  return r;
-}
-
-// Real envelope env(f) of the mother's spectrum (mothers.py).
-__device__ __forceinline__ float envelope(int mother, float f, float f0, int m) {
-  if (mother == kMorlet) {
-    float d = f - f0;
-    return expf(-0.5f * (d * d));
-  }
-  if (mother == kPaul) {
-    return f > 0.0f ? expf((float)m * logf(f) - f) : 0.0f;
-  }
-  return int_pow(f, m) * expf(-0.5f * (f * f));
-}
-
-// e^{+2 pi i m / n} for 0 <= m < n, n a power of two.
-__device__ __forceinline__ void unit_root(long long m, long long n, float* s, float* c) {
-  if (n <= (1LL << 23)) {
-    // 2m < 2^24 and n a power of two: the argument is exact in f32.
-    sincospif((float)(2 * m) / (float)n, s, c);
+// e^{+2 pi i m / n} for 0 <= m < n, n a power of two, inv = 2/n.
+__device__ __forceinline__ float2 unit_root(int m, int n, float inv) {
+  float s, c;
+  if (n <= (1 << 23)) {
+    // m < 2^23 and 2/n a power of two: the argument is exact in f32.
+    sincospif((float)m * inv, &s, &c);
   } else {
     double sd, cd;
-    sincospi((double)(2 * m) / (double)n, &sd, &cd);
-    *s = (float)sd;
-    *c = (float)cd;
+    sincospi((double)(2LL * m) / (double)n, &sd, &cd);
+    s = (float)sd;
+    c = (float)cd;
   }
+  return make_float2(c, s);
 }
 
-// Table tw[j] = e^{+2 pi i j / R}, j < R/2, in shared memory.
-__device__ __forceinline__ void fill_twiddles(float* twr, float* twi, int R) {
-  for (int j = threadIdx.x; j < R / 2; j += blockDim.x) {
-    float s, c;
-    sincospif((float)(2 * j) / (float)R, &s, &c);
-    twr[j] = c;
-    twi[j] = s;
-  }
-}
-
-// In-place inverse (positive-exponent, unscaled) radix-2 DIT FFT of length R
-// on `cols` columns stored row-major with leading dimension ld; the input
-// rows must already be in bit-reversed order.  Ends with a barrier.
-__device__ void column_fft(float* re, float* im, const float* twr, const float* twi,
-                           int R, int log_r, int log_cols, int ld) {
-  const int cols = 1 << log_cols;
-  const int work = (R >> 1) << log_cols;
-  for (int ls = 1; ls <= log_r; ++ls) {
-    const int half = 1 << (ls - 1);
-    const int tstride = R >> ls;
-    for (int idx = threadIdx.x; idx < work; idx += blockDim.x) {
-      const int bf = idx >> log_cols;
-      const int j = idx & (cols - 1);
-      const int g = bf >> (ls - 1);
-      const int jj = bf & (half - 1);
-      const int i0 = ((g << ls) + jj) * ld + j;
-      const int i1 = i0 + half * ld;
-      const float wr = twr[jj * tstride];
-      const float wi = twi[jj * tstride];
-      const float ur = re[i0], ui = im[i0];
-      const float xr = re[i1], xi = im[i1];
-      const float vr = xr * wr - xi * wi;
-      const float vi = xr * wi + xi * wr;
-      re[i0] = ur + vr;
-      im[i0] = ui + vi;
-      re[i1] = ur - vr;
-      im[i1] = ui - vi;
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ int bit_reverse(int v, int bits) {
-  return (int)(__brev((unsigned)v) >> (32 - bits));
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <int LOG_R>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 cwt_stage_a_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                    long long x_stride, const float* __restrict__ scales,
                    float* __restrict__ tr, float* __restrict__ ti,
-                   int S, int R1, int R2, int log_r2, int rows, int log_cols,
+                   int S, int R1, int rows, int log_cols, int ld,
                    int mother, float f0, int m, float cre, float cim, float dt,
                    float omega0) {
-  extern __shared__ float smem[];
-  const int cols = 1 << log_cols;
-  const int ld = cols + 1;
-  float* sre = smem;
-  float* sim = sre + R2 * ld;
-  float* twr = sim + R2 * ld;
-  float* twi = twr + R2 / 2;
+  using P = ColumnPlan<LOG_R>;
+  constexpr int R = P::kR;            // R2: the column length
+  constexpr int TC = P::kTC;
+  constexpr int RL = P::kLast;
+  extern __shared__ float2 smem[];
+  float2* tw = smem;
+  float2* buf = smem + P::kTw;
 
+  const int tid = threadIdx.x;
+  const int cols = 1 << log_cols;
   const int tiles = R1 >> log_cols;
   const long long row = blockIdx.x / tiles;        // signal * S + scale
-  const int tile = blockIdx.x - (int)(row * tiles);
+  const int a0 = (int)(blockIdx.x - row * tiles) << log_cols;
   const long long sig = row / S;
-  const int a0 = tile << log_cols;
-  const long long n = (long long)R1 * R2;
+  const int n = R1 * R;
+  // column-fastest (first pass: X's loads run along a) and point-fastest
+  // (the other passes; T's stores run along c)
+  const int j1 = tid & (cols - 1), l1 = tid >> log_cols;
+  const int j2 = tid / TC, l2 = tid % TC;
 
-  fill_twiddles(twr, twi, R2);
+  // X's bins b = l1 + r*R/16 of column a0 + j1 first: their latency hides
+  // under the twiddle build.
+  const float* xrs = xr + sig * x_stride;
+  const float* xis = xi + sig * x_stride;
+  float xa[16], xb[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const bool live = l1 + r * TC < rows;
+    const int k = (l1 + r * TC) * R1 + a0 + j1;
+    xa[r] = live ? xrs[k] : 0.0f;
+    xb[r] = live ? xis[k] : 0.0f;
+  }
+  fill_twiddles(tw, R, P::kTw, tid, blockDim.x);
 
   const float s = scales[row - sig * S];
   const float norm = sqrtf(kTwoPi * s / dt);
   const float hr0 = norm * cre;
   const float hi0 = norm * cim;
-  const float* xrs = xr + sig * x_stride;
-  const float* xis = xi + sig * x_stride;
-  for (int idx = threadIdx.x; idx < (R2 << log_cols); idx += blockDim.x) {
-    const int b = idx >> log_cols;
-    const int j = idx & (cols - 1);
-    float yr = 0.0f, yi = 0.0f;
-    if (b < rows) {
-      const long long k = (long long)b * R1 + a0 + j;
-      const long long kf = k >= n / 2 ? k - n : k;   // fftfreq fold
-      const float f = s * (omega0 * (float)kf);
-      const float env = envelope(mother, f, f0, m);
+  float2 v[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    v[r] = make_float2(0.0f, 0.0f);
+    if (l1 + r * TC < rows) {
+      const int k = (l1 + r * TC) * R1 + a0 + j1;
+      const int kf = k >= n / 2 ? k - n : k;   // fftfreq fold
+      const float env = envelope(mother, s * (omega0 * (float)kf), f0, m);
       const float hr = hr0 * env, hi = hi0 * env;
-      const float vr = xrs[k], vi = xis[k];
-      yr = vr * hr - vi * hi;
-      yi = vr * hi + vi * hr;
+      v[r] = make_float2(xa[r] * hr - xb[r] * hi, xa[r] * hi + xb[r] * hr);
     }
-    const int p = bit_reverse(b, log_r2) * ld + j;
-    sre[p] = yr;
-    sim[p] = yi;
   }
-  __syncthreads();
+  column_stockham<LOG_R, false>(v, buf, tw, j1 * ld, l1, j2 * ld, l2);
 
-  column_fft(sre, sim, twr, twi, R2, log_r2, log_cols, ld);
-
-  float* trr = tr + (row * R1 + a0) * (long long)R2;
-  float* tir = ti + (row * R1 + a0) * (long long)R2;
-  for (int idx = threadIdx.x; idx < (R2 << log_cols); idx += blockDim.x) {
-    const int j = idx / R2;
-    const int c = idx - j * R2;
-    const int p = c * ld + j;
-    float ws, wc;
-    unit_root((long long)(a0 + j) * c, n, &ws, &wc);
-    const float zr = sre[p], zi = sim[p];
-    trr[idx] = zr * wc - zi * ws;
-    tir[idx] = zr * ws + zi * wc;
+  // Epilogue: output c = lt + q*TC + r*NSL of column a is Z[a, c], times
+  // e^{2 pi i ac/N} = A_q * lo[r % 4] * hi[r / 4]: the roots of a*(lt + q*TC),
+  // a*(r % 4)*NSL and a*(r / 4)*4*NSL.  16/RL + 6 roots per thread at most
+  // (7 at R = 1024), not one per point.
+  constexpr int NSL = R / RL;
+  constexpr int NLO = RL < 4 ? RL : 4;
+  constexpr int NHI = RL / NLO;
+  const int j = P::kPasses > 1 ? j2 : j1;
+  const int lt = P::kPasses > 1 ? l2 : l1;
+  const int a = a0 + j;
+  const float inv = 2.0f / (float)n;
+  float2 lo[NLO], hi[NHI];
+#pragma unroll
+  for (int r = 1; r < NLO; ++r) lo[r] = unit_root(a * r * NSL, n, inv);
+#pragma unroll
+  for (int h = 1; h < NHI; ++h) hi[h] = unit_root(a * h * NLO * NSL, n, inv);
+  const long long out = (row * R1 + a) * (long long)R;
+#pragma unroll
+  for (int q = 0; q < 16 / RL; ++q) {
+    const float2 aq = unit_root(a * (lt + q * TC), n, inv);
+#pragma unroll
+    for (int r = 0; r < RL; ++r) {
+      float2 w = aq;
+      if (r % NLO) w = cmul(w, lo[r % NLO]);
+      if (r / NLO) w = cmul(w, hi[r / NLO]);
+      const float2 z = cmul(v[q * RL + r], w);
+      const int c = lt + q * TC + r * NSL;
+      tr[out + c] = z.x;
+      ti[out + c] = z.y;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int LOG_R>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 cwt_stage_b_kernel(const float* __restrict__ tr, const float* __restrict__ ti,
                    float* __restrict__ out0, float* __restrict__ out1,
-                   int R1, int R2, int log_r1, int log_cols, int mode, float inv_n) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads];
-  const int cols = 1 << log_cols;
-  const int ld = cols + 1;
-  float* sre = smem;
-  float* sim = sre + R1 * ld;
-  float* twr = sim + R1 * ld;
-  float* twi = twr + R1 / 2;
+                   int R2, int log_cols, int ld, int mode, float inv_n) {
+  using P = ColumnPlan<LOG_R>;
+  constexpr int R = P::kR;            // R1: the column length
+  constexpr int TC = P::kTC;
+  constexpr int RL = P::kLast;
+  extern __shared__ float2 smem[];
+  float2* tw = smem;
+  float2* buf = smem + P::kTw;
 
+  const int tid = threadIdx.x;
+  const int cols = 1 << log_cols;
   const int tiles = R2 >> log_cols;
   const long long row = blockIdx.x / tiles;
-  const int tile = blockIdx.x - (int)(row * tiles);
+  const int tile = (int)(blockIdx.x - row * tiles);
   const int c0 = tile << log_cols;
-  const long long n = (long long)R1 * R2;
+  const long long n = (long long)R * R2;
+  // column-fastest (the first pass's loads along c, the last pass's stores
+  // along t) and point-fastest (the passes in between)
+  const int j = tid & (cols - 1), lt = tid >> log_cols;
+  const int j2 = tid / TC, l2 = tid % TC;
 
-  fill_twiddles(twr, twi, R1);
-
-  const float* trr = tr + row * n;
-  const float* tir = ti + row * n;
-  for (int idx = threadIdx.x; idx < (R1 << log_cols); idx += blockDim.x) {
-    const int a = idx >> log_cols;
-    const int j = idx & (cols - 1);
-    const long long q = (long long)a * R2 + c0 + j;
-    const int p = bit_reverse(a, log_r1) * ld + j;
-    sre[p] = trr[q];
-    sim[p] = tir[q];
+  // T[row, a, c0 + j] for a = lt + r*R/16 first, under the twiddle build.
+  const float* trr = tr + row * n + c0 + j;
+  const float* tir = ti + row * n + c0 + j;
+  float2 v[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const long long q = (long long)(lt + r * TC) * R2;
+    v[r] = make_float2(trr[q], tir[q]);
   }
-  __syncthreads();
+  fill_twiddles(tw, R, P::kTw, tid, blockDim.x);
 
-  column_fft(sre, sim, twr, twi, R1, log_r1, log_cols, ld);
+  column_stockham<LOG_R, true>(v, buf, tw, j * ld, lt, j2 * ld, l2);
 
+  // Epilogue: output d = jj + r*R/RL of column c0 + j is W[c0 + j + R2*d]*N.
   float acc = 0.0f;
-  for (int idx = threadIdx.x; idx < (R1 << log_cols); idx += blockDim.x) {
-    const int d = idx >> log_cols;
-    const int j = idx & (cols - 1);
-    const int p = d * ld + j;
-    const float wr = sre[p] * inv_n;
-    const float wi = sim[p] * inv_n;
-    const long long t = row * n + (long long)d * R2 + c0 + j;
-    if (mode == kPlanes) {
-      out0[t] = wr;
-      out1[t] = wi;
-    } else if (mode == kPower) {
-      out0[t] = wr * wr + wi * wi;
-    } else {
-      acc += wr * wr + wi * wi;
+  const long long out = row * n + c0 + j;
+#pragma unroll
+  for (int q = 0; q < 16 / RL; ++q) {
+#pragma unroll
+    for (int r = 0; r < RL; ++r) {
+      const int d = lt + q * TC + r * (R / RL);
+      const float wr = v[q * RL + r].x * inv_n;
+      const float wi = v[q * RL + r].y * inv_n;
+      const long long t = out + (long long)d * R2;
+      if (mode == kPlanes) {
+        out0[t] = wr;
+        out1[t] = wi;
+      } else if (mode == kPower) {
+        out0[t] = wr * wr + wi * wi;
+      } else {
+        acc += wr * wr + wi * wi;
+      }
     }
   }
   if (mode == kPowerSum) {
     // Fixed-order tree over the block: the same bits for the same row,
     // whatever the batch.
-    red[threadIdx.x] = acc;
+    __syncthreads();   // the last pass's reads of buf are done
+    float* red = reinterpret_cast<float*>(buf);
+    red[tid] = acc;
     __syncthreads();
     for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-      if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+      if (tid < w) red[tid] += red[tid + w];
       __syncthreads();
     }
-    if (threadIdx.x == 0) out0[row * tiles + tile] = red[0];
+    if (tid == 0) out0[row * tiles + tile] = red[0];
   }
 }
 
@@ -276,57 +264,148 @@ int log2i(int v) {
   return l;
 }
 
-// Dynamic shared memory of one block of either stage: planar columns of R
-// points, `cols` of them at leading dimension cols + 1, and the R/2-entry
-// twiddle table (ops/fused_cwt.py sizes `cols` with the same formula).
-size_t smem_bytes(int R, int cols) {
-  return sizeof(float) * ((size_t)2 * R * (cols + 1) + R);
+// Column stride of a block's buffer, in float2 slots: R points padded one in
+// 16, plus up to 15 slots so that the stride is 16/min(cols, 16) mod 16.
+// Then the accesses that cross columns (a half-warp of 16 threads over
+// min(cols, 16) columns and 16/min(cols, 16) consecutive points) hit 16
+// distinct bank pairs.  ops/fused_cwt.py's _column_ld has the same formula.
+int column_ld(int R, int cols) {
+  const int c = cols < 16 ? cols : 16;
+  const int padded = R + R / 16;
+  return padded + ((16 / c - padded) % 16 + 16) % 16;
 }
 
-cudaError_t set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+// Dynamic shared memory of one block: the twiddle tables, then `cols`
+// padded columns (ops/fused_cwt.py's _smem_bytes).
+template <int LOG_R>
+size_t smem_bytes(int cols) {
+  return sizeof(float2) * ((size_t)ColumnPlan<LOG_R>::kTw +
+                           (size_t)cols * column_ld(1 << LOG_R, cols));
 }
 
-}  // namespace
+// The plan (p[0], .., p[3]) the caller passed, trailing 1s, must be the
+// kernel's: 16 for every pass but the last, then kLast.
+template <int LOG_R>
+bool plan_matches(const int* plan) {
+  using P = ColumnPlan<LOG_R>;
+  for (int i = 0; i < 4; ++i) {
+    const int want = i < P::kPasses - 1 ? 16 : i == P::kPasses - 1 ? P::kLast : 1;
+    if (plan[i] != want) return false;
+  }
+  return true;
+}
 
-extern "C" {
+// A block may take up to 227 KB of dynamic shared memory: the attribute is
+// set once per kernel, process and device.
+cudaError_t allow_smem(const void* fn, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
 
-// X: planar rows x_stride apart, B signals; scales: S; T out: (B*S, R1, R2).
-cudaError_t cwt_stage_a(const float* xr, const float* xi, long long x_stride,
-                        const float* scales, float* tr, float* ti,
-                        int B, int S, int R1, int R2, int rows, int cols,
-                        int mother, float f0, int m, float cre, float cim,
-                        float dt, float omega0, void* stream) {
-  const size_t bytes = smem_bytes(R2, cols);
-  cudaError_t err = set_smem((const void*)cwt_stage_a_kernel, bytes);
+// cols a power of two that divides `other`, with cols * R <= 8192.
+bool tile_ok(int R, int cols, int other) {
+  return cols >= 1 && (cols & (cols - 1)) == 0 && other % cols == 0 &&
+         (long long)cols * R <= 16LL * kMaxThreads;
+}
+
+template <int LOG_R>
+cudaError_t launch_a(const float* xr, const float* xi, long long x_stride,
+                     const float* scales, float* tr, float* ti, int B, int S, int R1,
+                     int rows, int cols, int mother, float f0, int m, float cre,
+                     float cim, float dt, float omega0, const int* plan,
+                     cudaStream_t stream) {
+  constexpr int R = 1 << LOG_R;
+  if (!plan_matches<LOG_R>(plan) || !tile_ok(R, cols, R1) || (rows != R && 2 * rows != R)) {
+    return cudaErrorInvalidValue;
+  }
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = allow_smem((const void*)cwt_stage_a_kernel<LOG_R>, done);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)B * S * (R1 / cols);
-  cwt_stage_a_kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(
-      xr, xi, x_stride, scales, tr, ti, S, R1, R2, log2i(R2), rows, log2i(cols),
+  cwt_stage_a_kernel<LOG_R><<<(unsigned)blocks, cols * R / 16, smem_bytes<LOG_R>(cols),
+                              stream>>>(
+      xr, xi, x_stride, scales, tr, ti, S, R1, rows, log2i(cols), column_ld(R, cols),
       mother, f0, m, cre, cim, dt, omega0);
   return cudaGetLastError();
 }
 
+template <int LOG_R>
+cudaError_t launch_b(const float* tr, const float* ti, float* out0, float* out1,
+                     long long rows, int R2, int cols, int mode, float inv_n,
+                     const int* plan, cudaStream_t stream) {
+  constexpr int R = 1 << LOG_R;
+  if (!plan_matches<LOG_R>(plan) || !tile_ok(R, cols, R2)) return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = allow_smem((const void*)cwt_stage_b_kernel<LOG_R>, done);
+  if (err != cudaSuccess) return err;
+  const long long blocks = rows * (R2 / cols);
+  cwt_stage_b_kernel<LOG_R><<<(unsigned)blocks, cols * R / 16, smem_bytes<LOG_R>(cols),
+                              stream>>>(
+      tr, ti, out0, out1, R2, log2i(cols), column_ld(R, cols), mode, inv_n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+#define PYCWT_COLUMN_CASES(X) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)
+
+extern "C" {
+
+// X: planar rows x_stride apart, B signals; scales: S; T out: (B*S, R1, R2).
+// The radix plan (p0, .., p3) of the length-R2 columns must be
+// _column_radix_plan(R2), padded with 1s; any other is refused.
+cudaError_t cwt_stage_a(const float* xr, const float* xi, long long x_stride,
+                        const float* scales, float* tr, float* ti,
+                        int B, int S, int R1, int R2, int rows, int cols,
+                        int mother, float f0, int m, float cre, float cim,
+                        float dt, float omega0, int p0, int p1, int p2, int p3,
+                        void* stream) {
+  const int plan[4] = {p0, p1, p2, p3};
+  if (B < 1 || S < 1) return cudaErrorInvalidValue;
+#define PYCWT_STAGE_A_CASE(LOG_R)                                                     \
+  case 1 << LOG_R:                                                                    \
+    return launch_a<LOG_R>(xr, xi, x_stride, scales, tr, ti, B, S, R1, rows, cols,    \
+                           mother, f0, m, cre, cim, dt, omega0, plan,                 \
+                           (cudaStream_t)stream);
+  switch (R2) {
+    PYCWT_COLUMN_CASES(PYCWT_STAGE_A_CASE)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PYCWT_STAGE_A_CASE
+}
+
 // T: (rows, R1, R2).  mode 0: out0/out1 = W planes (rows, N); mode 1:
 // out0 = |W|^2 (rows, N); mode 2: out0 = partials (rows, R2/cols) scratch,
-// out1 = sum_t |W|^2 (rows,).
+// out1 = sum_t |W|^2 (rows,).  The plan of the length-R1 columns must be
+// _column_radix_plan(R1), padded with 1s.
 cudaError_t cwt_stage_b(const float* tr, const float* ti, float* out0, float* out1,
                         long long rows, int R1, int R2, int cols, int mode,
-                        float inv_n, void* stream) {
-  const size_t bytes = smem_bytes(R1, cols);
-  cudaError_t err = set_smem((const void*)cwt_stage_b_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const int tiles = R2 / cols;
-  const long long blocks = rows * tiles;
-  cwt_stage_b_kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(
-      tr, ti, out0, out1, R1, R2, log2i(R1), log2i(cols), mode, inv_n);
-  err = cudaGetLastError();
+                        float inv_n, int p0, int p1, int p2, int p3, void* stream) {
+  const int plan[4] = {p0, p1, p2, p3};
+  if (rows < 1 || mode < kPlanes || mode > kPowerSum) return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+#define PYCWT_STAGE_B_CASE(LOG_R)                                                  \
+  case 1 << LOG_R:                                                                 \
+    err = launch_b<LOG_R>(tr, ti, out0, out1, rows, R2, cols, mode, inv_n, plan, st); \
+    break;
+  switch (R1) {
+    PYCWT_COLUMN_CASES(PYCWT_STAGE_B_CASE)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PYCWT_STAGE_B_CASE
   if (err != cudaSuccess || mode != kPowerSum) return err;
-  const unsigned rblocks = (unsigned)((rows + kThreads - 1) / kThreads);
-  cwt_stage_b_reduce_kernel<<<rblocks, kThreads, 0, (cudaStream_t)stream>>>(
-      out0, out1, rows, tiles);
+  const unsigned rblocks = (unsigned)((rows + kReduceThreads - 1) / kReduceThreads);
+  cwt_stage_b_reduce_kernel<<<rblocks, kReduceThreads, 0, st>>>(out0, out1, rows,
+                                                                R2 / cols);
   return cudaGetLastError();
 }
 

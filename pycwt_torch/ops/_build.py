@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, under ``pycwt_torch/_build/``
 (listed in ``.gitignore``), and loaded with ``ctypes``.  The library's file
-name carries a hash of its source and flags, so an edited source rebuilds
-and an unchanged one loads at once.  Nothing here runs at import time.
+name carries a hash of its source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header rebuilds and an unchanged one loads at
+once.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ _V, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "fused_cwt": {
         "cwt_stage_a": ([_V, _V, _LL, _V, _V, _V, _I, _I, _I, _I, _I, _I,
-                         _I, _F, _I, _F, _F, _F, _F, _V], _I),
-        "cwt_stage_b": ([_V, _V, _V, _V, _LL, _I, _I, _I, _I, _F, _V], _I),
+                         _I, _F, _I, _F, _F, _F, _F, _I, _I, _I, _I, _V], _I),
+        "cwt_stage_b": ([_V, _V, _V, _V, _LL, _I, _I, _I, _I, _F,
+                         _I, _I, _I, _I, _V], _I),
     },
     "direct_cwt": {
         "cwt_direct": ([_V, _V, _LL, _V, _V, _V, _I, _I, _I, _I, _I, _F,
@@ -60,9 +62,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def _target(name: str, csrc_dir: str = CSRC_DIR) -> str:
+    """The library's path: its name and a hash of its source, of every
+    header in ``csrc_dir`` (``*.cuh``, which any source may include) and of
+    the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(csrc_dir, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

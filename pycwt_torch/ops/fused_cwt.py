@@ -9,6 +9,11 @@ k = b·R1 + a and t = c + R2·d:
     stage A:  T[a, c] = e^{2πi·ac/N} Σ_b X[b·R1 + a]·H̄_s[b·R1 + a] e^{2πi·bc/R2}
     stage B:  W[c + R2·d] = (1/N) Σ_a T[a, c] e^{2πi·ad/R1}
 
+Each kernel runs its length-R2 (stage A) or length-R1 (stage B) columns as a
+Stockham FFT of 16 points per thread with the radices of
+:func:`_column_radix_plan`, which the wrapper passes and the kernel checks;
+:func:`_column_stockham` replays those passes for the tests.
+
 Dispatch: a CPU tensor runs the plain PyTorch version
 (:func:`_fused_cwt_planar_reference`, the bank × X then ``torch.fft.ifft``);
 a CUDA tensor runs the kernels, or the call raises; any other device raises.
@@ -60,11 +65,11 @@ _DIRECT_BLOCK_POINTS = 1024
 #: epilogue -> the kernels' mode id (enum Mode in csrc/fused_cwt.cu, direct_cwt.cu)
 _MODES = {"planes": 0, "power": 1, "power_sum": 2}
 
-#: Shared memory a block aims to stay under (two blocks fit on one SM), and
-#: the most a Hopper block may take (227 KB, less the 1 KB static buffer).
-_SMEM_TARGET = 100 * 1024
-_SMEM_MAX = 232448 - 1024
-_MAX_COLS = 16
+#: Points a cwt_stage_a/cwt_stage_b block holds at most (cols·R ≤ 8192:
+#: 512 threads of 16 points, ~70 KB; two blocks fit on one SM), and the most
+#: shared memory a Hopper block may take (227 KB).
+_BLOCK_POINTS = 8192
+_SMEM_MAX = 232448
 
 
 def supported_nfft(nfft: int) -> bool:
@@ -80,24 +85,43 @@ def _nfft_factors(nfft: int) -> tuple[int, int]:
     return R1, nfft // R1
 
 
+def _column_radix_plan(R: int) -> tuple[int, ...]:
+    """Radices of the column FFT of ``cwt_stage_a``/``cwt_stage_b`` for R
+    points, R a power of two in [16, 8192]: radix-16 passes and a last radix
+    of 2, 4, 8 or 16, e.g. 16 at 16, 16·2 at 32, 16·16·4 at 1024, 16·16·16·2
+    at 8192 (ColumnPlan in csrc/fft_common.cuh; the kernels refuse any
+    other)."""
+    if R < 16 or R > _BLOCK_POINTS or R & (R - 1):
+        raise ValueError(f"column FFTs serve pow-2 lengths in [16, 8192], got {R}")
+    q = (R.bit_length() - 2) // 4
+    return (16,) * q + (R >> (4 * q),)
+
+
+def _column_ld(R: int, cols: int) -> int:
+    """Column stride of a block's buffer in complex slots (column_ld in
+    csrc/fused_cwt.cu): R points padded one in 16, rounded up to
+    16/min(cols, 16) mod 16 so that accesses across columns miss no bank."""
+    padded = R + R // 16
+    return padded + (16 // min(cols, 16) - padded) % 16
+
+
 def _smem_bytes(R: int, cols: int) -> int:
-    """Dynamic shared memory of one block (same formula as the CUDA source):
-    planar columns at leading dimension cols + 1, plus the twiddle table."""
-    return 4 * (2 * R * (cols + 1) + R)
+    """Dynamic shared memory of one block (smem_bytes in csrc/fused_cwt.cu):
+    the twiddle tables (none for one pass, 256 roots for two, 64 + R/64 more
+    for three or four), then ``cols`` padded columns, 8 bytes a point."""
+    passes = len(_column_radix_plan(R))
+    tw = 0 if passes < 2 else 256 + (64 + R // 64 if passes > 2 else 0)
+    return 8 * (tw + cols * _column_ld(R, cols))
 
 
 def _tile_cols(R: int, n_cols: int) -> int:
-    """Columns per block for R-point column FFTs: the widest pow-2 tile up to
-    16 that stays under the shared-memory target, else one column if that
-    fits a Hopper block at all."""
-    cols = min(_MAX_COLS, n_cols)
-    while cols > 1 and _smem_bytes(R, cols) > _SMEM_TARGET:
-        cols //= 2
-    if _smem_bytes(R, cols) > _SMEM_MAX:
-        raise ValueError(
-            f"a {R}-point column needs {_smem_bytes(R, 1)} bytes of shared "
-            f"memory, more than a Hopper block has ({_SMEM_MAX})")
-    return cols
+    """Columns per block for R-point column FFTs, R/16 threads each: as many
+    as fit in 8192 points (512 threads, at most ~73 KB of shared memory), at
+    most the ``n_cols`` there are."""
+    if R > _BLOCK_POINTS:
+        raise ValueError(f"a {R}-point column does not fit one block "
+                         f"({_BLOCK_POINTS} points at most)")
+    return min(n_cols, _BLOCK_POINTS // R)
 
 
 def _is_analytic(mother: Mother) -> bool:
@@ -210,6 +234,16 @@ def _stockham_pass(x, R: int, Ns: int):
     return out
 
 
+def _stockham(x, plan):
+    """The Stockham passes of ``plan`` (radices, in order) over the last dim
+    of ``x``: the unnormalised inverse DFT, in the kernels' pass order."""
+    Ns = 1
+    for R in plan:
+        x = _stockham_pass(x, R, Ns)
+        Ns *= R
+    return x
+
+
 def _direct_stockham_reference(sr, si, scales, *, mother: Mother, nfft: int,
                                dt: float, output: str = "planes"):
     """Kernel K3's passes in PyTorch, for the tests: the filtered product of
@@ -217,12 +251,22 @@ def _direct_stockham_reference(sr, si, scales, *, mother: Mother, nfft: int,
     :func:`_direct_radix_plan` in the kernel's order, 1/N, the epilogue."""
     y = _direct_filtered(sr, si, scales, mother=mother, nfft=nfft, dt=dt)
     y = torch.cat([y, y.new_zeros(y.shape[:-1] + (nfft - y.shape[-1],))], dim=-1)
-    Ns = 1
-    for R in _direct_radix_plan(nfft):
-        y = _stockham_pass(y, R, Ns)
-        Ns *= R
-    W = y / nfft
+    W = _stockham(y, _direct_radix_plan(nfft)) / nfft
     return _epilogue(W.real, W.imag, output)
+
+
+def _column_stockham(x, dim: int):
+    """``cwt_stage_a``/``cwt_stage_b``'s column FFT in PyTorch, for the
+    tests: the unnormalised inverse DFT of complex ``x`` along ``dim`` by the
+    passes of :func:`_column_radix_plan`, in the kernels' order."""
+    y = _stockham(x.movedim(dim, -1), _column_radix_plan(x.shape[dim]))
+    return y.movedim(-1, dim)
+
+
+def _column_ifft(x, dim: int):
+    """The unnormalised inverse DFT of complex ``x`` along ``dim``
+    (``torch.fft``): the stage references' column FFT."""
+    return torch.fft.ifft(x, dim=dim, norm="forward")
 
 
 def _epilogue(wr, wi, output: str):
@@ -233,10 +277,12 @@ def _epilogue(wr, wi, output: str):
 
 
 def _stage_a_reference(sr, si, scales, *, mother: Mother, nfft: int,
-                       dt: float):
+                       dt: float, column_fft=_column_ifft):
     """Stage A in PyTorch with the kernel's layout: ``sr``/``si`` are
     ``(B, n_in)``; returns planar T of shape ``(B·S, R1, R2)``.  Analytic
-    mothers read only rows b < R2/2 (k < N/2), as the kernel does."""
+    mothers read only rows b < R2/2 (k < N/2), as the kernel does.
+    ``column_fft(y, dim)`` is the length-R2 inverse DFT (the tests pass the
+    kernel's mirror :func:`_column_stockham`)."""
     R1, R2 = _nfft_factors(nfft)
     B, n_in = sr.shape
     rows = R2 // 2 if _is_analytic(mother) else R2
@@ -251,7 +297,9 @@ def _stage_a_reference(sr, si, scales, *, mother: Mother, nfft: int,
     norm = torch.sqrt(2.0 * math.pi * scales / dt)[:, None, None]
     cbar = complex(mother.psi_ft_const()).conjugate()
     h = torch.complex(norm * env * cbar.real, norm * env * cbar.imag)
-    Z = torch.fft.ifft(x[:, None] * h[None], n=R2, dim=-2, norm="forward")
+    y = x[:, None] * h[None]
+    Z = column_fft(torch.cat([y, y.new_zeros(y.shape[:-2] + (R2 - rows, R1))], dim=-2),
+                   -2)
     ac = (torch.arange(R2, dtype=torch.float64, device=dev)[:, None]
           * torch.arange(R1, dtype=torch.float64, device=dev)[None, :])
     tw = torch.polar(torch.ones_like(ac), (2 * math.pi / nfft) * ac)
@@ -259,10 +307,11 @@ def _stage_a_reference(sr, si, scales, *, mother: Mother, nfft: int,
     return T.real.contiguous(), T.imag.contiguous()
 
 
-def _stage_b_reference(tr, ti, *, nfft: int, output: str):
+def _stage_b_reference(tr, ti, *, nfft: int, output: str, column_fft=_column_ifft):
     """Stage B in PyTorch: T ``(rows, R1, R2)`` → W planes ``(rows, N)`` ×2,
-    |W|² ``(rows, N)``, or Σ_t |W|² ``(rows,)``."""
-    M = torch.fft.ifft(torch.complex(tr, ti), dim=-2, norm="forward") / nfft
+    |W|² ``(rows, N)``, or Σ_t |W|² ``(rows,)``; ``column_fft`` as in
+    :func:`_stage_a_reference`, of length R1."""
+    M = column_fft(torch.complex(tr, ti), -2) / nfft
     W = M.reshape(tr.shape[0], nfft)
     return _epilogue(W.real, W.imag, output)
 
@@ -274,6 +323,13 @@ def _stage_b_reference(tr, ti, *, nfft: int, output: str):
 def _check_grid(blocks: int) -> None:
     if blocks >= 1 << 31:
         raise ValueError(f"{blocks} blocks exceed a CUDA grid; split the batch")
+
+
+def _plan_args(R: int) -> tuple[int, ...]:
+    """:func:`_column_radix_plan` padded with 1s to the kernels' four
+    plan arguments."""
+    plan = _column_radix_plan(R)
+    return plan + (1,) * (4 - len(plan))
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -310,7 +366,7 @@ def stage_a(sr, si, scales, *, mother: Mother, nfft: int, dt: float):
             sr.data_ptr(), si.data_ptr(), n_in, scales.data_ptr(),
             tr.data_ptr(), ti.data_ptr(),
             B, S, R1, R2, rows, cols, kind, f0, m, cbar.real, cbar.imag,
-            float(dt), 2.0 * math.pi / (nfft * dt),
+            float(dt), 2.0 * math.pi / (nfft * dt), *_plan_args(R2),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cwt_stage_a")
     KERNEL_LAUNCHES["cwt_stage_a"] += 1
@@ -347,7 +403,7 @@ def stage_b(tr, ti, *, nfft: int, output: str):
         err = library("fused_cwt").cwt_stage_b(
             tr.data_ptr(), ti.data_ptr(), out0.data_ptr(),
             None if out1 is None else out1.data_ptr(),
-            rows, R1, R2, cols, _MODES[output], 1.0 / nfft,
+            rows, R1, R2, cols, _MODES[output], 1.0 / nfft, *_plan_args(R1),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "cwt_stage_b")
     KERNEL_LAUNCHES["cwt_stage_b"] += 1

@@ -1,7 +1,12 @@
 """The port's fused CWT (ops/fused_cwt.py) on the CPU, in float32, against
 pycwt_tpu's Pallas kernels run in interpret mode: at nfft 2^14 JAX runs its
 two-kernel path (kernels A and B), at 2^12 its planar small path.  Also the
-kernel layout's plain versions, the errors, and the whole cwt_power slice."""
+kernel layout's plain versions, the CUDA kernels' column radix plan, tiles
+and Stockham passes (mirrored in PyTorch), the library build's hash, the
+errors, and the whole cwt_power slice."""
+import math
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -96,15 +101,173 @@ def test_supported_nfft_matches_jax():
 
 
 def test_tile_sizes_fit_hopper_shared_memory():
+    """cols·R ≤ 8192 points (512 threads of 16 points), and ≥ 128 threads
+    wherever the other factor has enough columns; two blocks fit on one SM
+    wherever a block has 512 threads."""
     for p in range(8, 27):
         R1, R2 = fc._nfft_factors(1 << p)
         for R, other in ((R2, R1), (R1, R2)):
             cols = fc._tile_cols(R, other)
             assert cols & (cols - 1) == 0 and other % cols == 0
             assert fc._smem_bytes(R, cols) <= fc._SMEM_MAX
+            threads = cols * R // 16
+            assert threads <= 512 and (threads >= 128 or cols == other)
+            if threads == 512:
+                assert 2 * fc._smem_bytes(R, cols) <= fc._SMEM_MAX
     assert fc._tile_cols(1024, 1024) == 8
     with pytest.raises(ValueError):
         fc._tile_cols(1 << 14, 1 << 14)
+
+
+@pytest.mark.parametrize("log_r", range(4, 14))
+def test_column_radix_plan(log_r):
+    """Radix-16 passes and a last radix of 2..16, as ColumnPlan in
+    csrc/fft_common.cuh: 16, 16·2..16·16, 16·16·2..16·16·16, 16·16·16·2."""
+    R = 1 << log_r
+    plan = fc._column_radix_plan(R)
+    assert math.prod(plan) == R and len(plan) == (log_r + 3) // 4
+    assert all(r == 16 for r in plan[:-1]) and plan[-1] in (2, 4, 8, 16)
+    assert fc._plan_args(R) == plan + (1,) * (4 - len(plan))
+    for bad in (R // 2 if R == 16 else R + 16, 2 * R if R == 8192 else 3 * R):
+        with pytest.raises(ValueError):
+            fc._column_radix_plan(bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("log_r", range(4, 14))
+def test_column_stockham_matches_ifft(log_r, dtype):
+    """The kernels' column FFT mirrored in PyTorch against torch.fft.ifft
+    (unnormalised) along a middle axis: f64 within 1e-12 and f32 within 2e-6
+    of max|·|."""
+    R = 1 << log_r
+    rng = np.random.default_rng(log_r)
+    x = torch.tensor(rng.standard_normal((2, R, 3)) + 1j * rng.standard_normal((2, R, 3)))
+    ref = torch.fft.ifft(x, dim=1, norm="forward")
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    got = fc._column_stockham(x.to(cdtype), 1)
+    assert got.shape == x.shape and got.dtype == cdtype
+    bound = 1e-12 if dtype == torch.float64 else 2e-6
+    assert float((got.to(ref.dtype) - ref).abs().max()) <= bound * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("spec", range(len(SPECTRA)), ids=SIDS)
+@pytest.mark.parametrize("pow2", [9, 13, 14])
+def test_stage_references_on_column_mirror(spec, pow2):
+    """Stage A and stage B rebuilt on the kernels' column passes equal their
+    torch.fft references at f64 round-off (1e-12), for odd (2^9, 2^13) and
+    even (2^14) splits: T, and W in every output."""
+    _, t, half = SPECTRA[spec]
+    nfft = 1 << pow2
+    x = torch.tensor(np.random.default_rng(pow2).standard_normal((2, nfft)))
+    sr, si = tdft.fft_of_real_planar(x, nfft, half=half)
+    kw = dict(mother=t, nfft=nfft, dt=0.5)
+    scales = torch.tensor(SCALES[:4])
+    T = fc._stage_a_reference(sr, si, scales, **kw)
+    Tm = fc._stage_a_reference(sr, si, scales, column_fft=fc._column_stockham, **kw)
+    T_max = float(torch.complex(*T).abs().max())
+    assert float((torch.complex(*Tm) - torch.complex(*T)).abs().max()) <= 1e-12 * T_max
+    for output in ("planes", "power", "power_sum"):
+        ref = fc._stage_b_reference(*T, nfft=nfft, output=output)
+        got = fc._stage_b_reference(*T, nfft=nfft, output=output,
+                                    column_fft=fc._column_stockham)
+        if output == "planes":
+            got, ref = torch.complex(*got), torch.complex(*ref)
+        assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max()), output
+
+
+@pytest.mark.parametrize("spec", range(len(SPECTRA)), ids=SIDS)
+def test_column_mirror_pair_matches_jax_kernels(spec):
+    """At nfft 2^14, in float32: stage A then stage B on the kernels'
+    column passes against pycwt_tpu's kernels A and B in interpret mode,
+    within 1e-5 of max|W| (planes and the Σ_t |W|² epilogue)."""
+    j, t, half = SPECTRA[spec]
+    nfft = 1 << 14
+    sr, si = _spectrum(nfft, half)
+    S = len(SCALES)
+    kw = dict(nfft=nfft, dt=1.0)
+    T = fc._stage_a_reference(torch.tensor(sr)[None], torch.tensor(si)[None],
+                              torch.tensor(SCALES, dtype=torch.float32), mother=t,
+                              column_fft=fc._column_stockham, **kw)
+    assert T[0].dtype == torch.float32
+    for output in ("planes", "power_sum"):
+        ref = jpf.fused_cwt_planar(jnp.asarray(sr), jnp.asarray(si),
+                                   jnp.asarray(SCALES, jnp.float32), mother=j,
+                                   interpret=True, Ablk=32, Cblk=32,
+                                   precision="highest", output=output, **kw)
+        got = fc._stage_b_reference(*T, nfft=nfft, output=output,
+                                    column_fft=fc._column_stockham)
+        if output == "planes":
+            ref = np.asarray(ref[0]) + 1j * np.asarray(ref[1])
+            got = (got[0].numpy() + 1j * got[1].numpy()).reshape(S, nfft)
+        else:
+            ref, got = np.asarray(ref), got.numpy()
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max(), output
+
+
+def _pad(p):
+    return p + (p >> 4)
+
+
+def _banks_distinct(slots):
+    """Each half-warp's distinct 8-byte slots fall on distinct bank pairs."""
+    for h in range(0, len(slots), 16):
+        u = np.unique(slots[h:h + 16])
+        assert len(np.unique(u % 16)) == len(u), slots[h:h + 16]
+
+
+@pytest.mark.parametrize("log_r", range(4, 14))
+def test_column_layout_keeps_shared_accesses_off_shared_banks(log_r):
+    """The column stride of _column_ld and the kernels' two thread maps
+    (csrc/fused_cwt.cu): the first pass's stores and cwt_stage_b's last-pass
+    loads, which cross columns (threads column-fastest), hit distinct banks
+    at every R and tile; from R = 256 on, the passes with threads
+    point-fastest do too.  The first pass's stores fill every slot of each
+    column once."""
+    R = 1 << log_r
+    TC = R // 16
+    plan = fc._column_radix_plan(R)
+    for other in sorted({16, R, 1 << 13}):
+        cols = fc._tile_cols(R, min(other, 1 << 13))
+        ld = fc._column_ld(R, cols)
+        t = np.arange(cols * TC)
+        by_col = (t % cols, t // cols)      # column-fastest: (column, lt)
+        by_pt = (t // TC, t % TC)           # point-fastest
+        slots = [by_col[0] * ld + _pad(16 * by_col[1] + r) for r in range(16)]
+        for sl in slots:
+            _banks_distinct(sl)
+        assert np.array_equal(np.sort(np.concatenate(slots)), np.sort(
+            (np.arange(cols)[:, None] * ld + _pad(np.arange(R))[None]).ravel()))
+        RL, NS = plan[-1], R // plan[-1]
+        maps = [by_col] + ([by_pt] if R >= 256 else [])
+        for j, lt in maps:      # the last pass's loads
+            for q in range(16 // RL):
+                for r in range(RL):
+                    _banks_distinct(j * ld + _pad(lt + q * TC + r * NS))
+        if R >= 256:            # the radix-16 passes in between
+            j, lt = by_pt
+            for Ns in (16, 256)[:len(plan) - 2]:
+                d = (lt // Ns) * Ns * 16 + lt % Ns
+                for r in range(16):
+                    _banks_distinct(j * ld + _pad(lt + r * TC))
+                    _banks_distinct(j * ld + _pad(d + r * Ns))
+
+
+def test_build_target_hashes_headers(tmp_path):
+    """An edited shared header (csrc/*.cuh) renames both libraries' targets,
+    so neither loads a stale build; unchanged files keep the name."""
+    from pycwt_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers
+    before = {name: _build._target(name, str(csrc)) for name in _build.SOURCES}
+    assert before == {name: _build._target(name) for name in _build.SOURCES}
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n")
+    after = {name: _build._target(name, str(csrc)) for name in _build.SOURCES}
+    assert all(after[name] != before[name] for name in _build.SOURCES)
+    assert _build._target("fused_cwt", str(csrc)) == after["fused_cwt"]
 
 
 @pytest.mark.parametrize("half", [False, True], ids=["full", "half"])

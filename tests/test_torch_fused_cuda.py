@@ -1,5 +1,6 @@
 """The CUDA kernels cwt_stage_a and cwt_stage_b against their plain PyTorch
-versions on the card.  They need an NVIDIA card and nvcc, so they skip
+versions on the card, at every column radix plan from 16 to 2048 points, and
+the refusal of any other plan.  They need an NVIDIA card and nvcc, so they skip
 where there is none; ``python -m pytest tests/test_torch_fused_cuda.py`` on
 the card runs them."""
 import numpy as np
@@ -38,8 +39,10 @@ def _inputs(nfft, half, B, S, device, seed=0):
 
 @pytest.mark.parametrize("tier", sorted(TIER_BOUND))
 @pytest.mark.parametrize("output", ["planes", "power", "power_sum"])
-@pytest.mark.parametrize("pow2", [8, 10, 13, 14, 16, 20])
+@pytest.mark.parametrize("pow2", [8, 9, 10, 11, 13, 14, 16, 18, 20, 22])
 def test_kernels_match_plain_version(cuda, pow2, output, tier):
+    """Every column plan from R = 16 to 2048 in both kernels (cwt_stage_a's
+    length-R2 and cwt_stage_b's length-R1 columns)."""
     nfft = 1 << pow2
     for m in MOTHERS:
         for half in (False, True) if m.analytic_negligible_negative() else (False,):
@@ -105,3 +108,54 @@ def test_gradients_through_kernels(cuda):
     torch.testing.assert_close(gk[0], gr[0], rtol=0,
                                atol=1e-4 * float(gr[0].abs().max()))
     torch.testing.assert_close(gk[1], gr[1], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["full", "half"])
+def test_each_kernel_matches_its_stage_reference(cuda, half):
+    """At nfft 2^20 (16·16·4 columns): cwt_stage_a's T against
+    _stage_a_reference, and cwt_stage_b's W in every output against
+    _stage_b_reference on the same T, within 1e-5 of the reference's max."""
+    nfft = 1 << 20
+    sr, si, sc = _inputs(nfft, half, 1, 3, cuda, seed=20)
+    kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0)
+    T = fc.stage_a(sr, si, sc, **kw)
+    T_ref = torch.complex(*fc._stage_a_reference(sr, si, sc, **kw))
+    assert T[0].shape == T_ref.shape == (3, 1024, 1024)
+    err = float((torch.complex(*T) - T_ref).abs().max())
+    assert err <= 1e-5 * float(T_ref.abs().max())
+    for output in ("planes", "power", "power_sum"):
+        got = fc.stage_b(*T, nfft=nfft, output=output)
+        ref = fc._stage_b_reference(*T, nfft=nfft, output=output)
+        if output == "planes":
+            got, ref = torch.complex(*got), torch.complex(*ref)
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), output
+
+
+def test_wrong_radix_plan_refused(cuda):
+    """Each kernel launches only with _column_radix_plan's plan: any other
+    returns cudaErrorInvalidValue (1) and writes nothing."""
+    from pycwt_torch.ops._build import library
+
+    lib = library("fused_cwt")
+    nfft = 1 << 20
+    R1, R2 = fc._nfft_factors(nfft)
+    sr, si, sc = _inputs(nfft, True, 1, 1, cuda)
+    tr = torch.zeros((1, R1, R2), device=cuda)
+    ti = torch.zeros_like(tr)
+    out = torch.zeros((1, nfft), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    good = fc._plan_args(R2)
+    assert good == (16, 16, 4, 1)
+    for plan in [(16, 16, 2, 2), (16, 4, 16, 1), (4, 16, 16, 1), (16, 16, 4, 2), (1024, 1, 1, 1)]:
+        err_a = lib.cwt_stage_a(sr.data_ptr(), si.data_ptr(), nfft // 2, sc.data_ptr(),
+                                tr.data_ptr(), ti.data_ptr(), 1, 1, R1, R2, R2 // 2,
+                                fc._tile_cols(R2, R1), 0, 6.0, 0, 1.0, 0.0, 1.0,
+                                2 * np.pi / nfft, *plan, stream)
+        err_b = lib.cwt_stage_b(tr.data_ptr(), ti.data_ptr(), out.data_ptr(), None, 1,
+                                R1, R2, fc._tile_cols(R1, R2), 1, 1.0 / nfft, *plan, stream)
+        assert (err_a, err_b) == (1, 1), plan
+    torch.cuda.synchronize()
+    assert not tr.any() and not out.any()
+    assert lib.cwt_stage_b(tr.data_ptr(), ti.data_ptr(), out.data_ptr(), None, 1, R1, R2,
+                           fc._tile_cols(R1, R2), 1, 1.0 / nfft, *good, stream) == 0
