@@ -13,7 +13,11 @@ just after:
 * the statistics / XWT / WCT path (``xwt``, ``xwt_planar``,
   ``wct(sig=False)``, ``cwt_analysis``, ``xwt_analysis``, ``wct_analysis``)
   on the default route and on the ``PYCWT_TPU_SMALL_KERNEL=1`` route through
-  ``cwt_direct``, against the goldens, and a 4,000-point WCT pair on both.
+  ``cwt_direct``, against the goldens, and a 4,000-point WCT pair on both;
+* the Monte-Carlo significance (``wct_significance`` on both routes,
+  ``wct_significance_batch``, ``wct_analysis(sig=True)``) on the golden
+  JAO/JBaltic null at 300 members, against the golden's bands, bit for bit
+  across ``mc_batch`` and ``pair_block``, timed, with its peak memory.
 
 K1 and K2 are checked at every column radix plan from 16 to 2048 points
 (nfft 2^8 to 2^22), and lightly at 4096 and 8192 (2^24, 2^26).  It times K1
@@ -22,7 +26,10 @@ and K2 at the 2^20-point bench shape with CUDA events and by
 K1's and K2's device time, and ``cwt_direct``, the K1+K2 pair and the
 ``torch.fft.ifft`` yardstick at the K3 sizes by device time (CUDA-event
 times of one call stand beside them as ``wall_ms``).  It prints one JSON
-line of kernel numbers and, last, one JSON ``ok`` line.  Any failure raises:
+line of kernel numbers and, last, one JSON ``ok`` line.  ``--trace`` profiles
+the 4,000-point WCT and a 300-member Monte-Carlo run on both routes instead;
+``--ab PARENT`` times the 4,000-point WCT and its smoothing for an unpacked
+parent tree and this one in turns.  Any failure raises:
 the exit code is then non-zero and no ``ok`` line is printed.  Without a
 CUDA device it exits non-zero at once.
 """
@@ -32,6 +39,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -165,8 +173,6 @@ def phase_device():
 def _ptxas_usage(out):
     """(kernel, registers and spills) of each entry function in ``nvcc
     -Xptxas -v`` output, the kernel named with its template argument."""
-    import re
-
     rows, name = [], None
     for ln in out.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -624,6 +630,46 @@ def _wct_core_inputs(y1, y2):
                                          nfft=4096, dj=1 / 12)
 
 
+def phase_wct_timing():
+    """``--time-wct TREE``: the 4,000-point ``_wct_core`` on both routes and
+    its smoothing (``smooth_planar_pair`` on two (1, 133, 4000) planes, and
+    the scale boxcar alone on the complex field), by CUDA events and device
+    time, for the ``pycwt_torch`` of the tree on ``sys.path``; one JSON
+    line."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import smoothing as sm
+
+    _, sj, core_call = _wct_core_inputs(*_wct_pair())
+    out = {"tree": os.path.dirname(os.path.abspath(pt.__path__[0]))}
+    for small in (False, True):
+        with _route(small):
+            out["wct_core_ms_" + ("cwt_direct" if small else "default")] = time_ms(
+                core_call, runs=21, warmup=3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Ta, Tb = (torch.randn((1, sj.shape[0], 4000), generator=gen, device="cuda")
+              for _ in range(2))
+    T = sm.time_gaussian_smooth(torch.complex(Ta, Tb), sj, 1.0, 4096)
+    win = sm._scale_window(pt.Morlet(6), 1 / 12)
+    for name, fn in (
+            ("smooth_pair", lambda: sm.smooth_planar_pair(Ta, Tb, 1.0, 1 / 12, sj,
+                                                          pt.Morlet(6))),
+            ("boxcar", lambda: sm.scale_boxcar_same(T, win))):
+        out[name + "_ms"] = time_ms(fn, runs=21, warmup=3)
+        out[name + "_device_ms"] = device_ms(fn, calls=20)
+    log("WCT timing " + json.dumps(out))
+    return out
+
+
+def phase_ab(parent: str):
+    """``--ab PARENT``: :func:`phase_wct_timing` for the tree at PARENT (an
+    unpacked parent commit) and for this one, in turns (parent, this, this,
+    parent), each in a process of its own that builds its tree's kernels."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for tree in (parent, here, here, parent):
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--time-wct",
+                        os.path.abspath(tree)], check=True, timeout=600)
+
+
 def phase_wct_trace(calls=5):
     """``python3 chip_smoke.py --trace``: torch.profiler over ``calls`` calls
     of ``_wct_core`` at the 4,000-point shape on each route — device time by
@@ -798,6 +844,267 @@ def phase_column_plans():
     return rows
 
 
+#: JAO/JBaltic's Monte-Carlo golden and the bands of
+#: tests/test_mc_significance.py:32-41 (two independent 300-member ensembles)
+MC_GOLDEN = "wct_sig_jao_jbaltic.npz"
+MC_BANDS = {"max": 0.06, "mean": 0.02}
+MC_COUNT, MC_SEED = 300, 7
+
+
+def _mc_args():
+    g = np.load(os.path.join(GOLDEN, MC_GOLDEN))
+    kw = dict(dt=float(g["dt"]), dj=float(g["dj"]), s0=float(g["s0"]), J=int(g["J"]))
+    return g, float(g["al1"]), float(g["al2"]), kw
+
+
+def _mc_bands(sig95, ref, what):
+    """The golden's NaN/zero structure exactly, and the MC bands."""
+    check(sig95.shape == ref.shape, f"{what}: shape {sig95.shape}")
+    check(np.array_equal(np.isnan(sig95), np.isnan(ref)), f"{what}: NaN structure")
+    check(np.array_equal(sig95 == 0, ref == 0), f"{what}: zero structure")
+    valid = np.isfinite(ref) & (ref != 0)
+    diff = np.abs(sig95[valid] - ref[valid])
+    check(diff.max() < MC_BANDS["max"] and diff.mean() < MC_BANDS["mean"],
+          f"{what}: max |dsig95| {diff.max()}, mean {diff.mean()}")
+    return float(diff.max()), float(diff.mean())
+
+
+def _mc_chunk_inputs():
+    """The golden's surrogate grid on the card: (n, nfft, scales, outside-COI
+    mask, the chunk's keyword arguments)."""
+    import pycwt_torch as pt
+    from pycwt_torch import coherence as tco
+
+    _, al1, al2, kw = _mc_args()
+    n, sj, oc, _, _ = tco._surrogate_grid(kw["dt"], kw["dj"], kw["s0"], kw["J"],
+                                          pt.Morlet(6))
+    nfft = 1 << (n - 1).bit_length()
+    chunk_kw = dict(mother=pt.Morlet(6), nfft=nfft, dj=kw["dj"], n=n, al1=al1, al2=al2)
+    return (n, nfft, torch.tensor(sj, dtype=torch.float32, device="cuda"),
+            torch.tensor(oc, device="cuda"), chunk_kw)
+
+
+def phase_mc_significance():
+    """The Monte-Carlo WCT significance on the card, on the golden JAO/JBaltic
+    pair's null (S = 76, n = 885, nfft = 1024, 300 members, seed 7):
+    wct_significance on both kernel routes against the golden's bands with
+    the route's launches counted; curves and summed histograms at mc_batch
+    300/64/7 bit for bit; the chunk's forward transform (2·300 rows) against
+    the plain version; no host sync inside a run of chunks; the 300-member
+    run timed on both routes with its peak memory per member against
+    _mc_auto_batch's model; the same-seed CPU f64 curve beside the card's;
+    wct_significance_batch over 8 nulls at two pair_block values; and
+    wct_analysis(sig=True) against the golden."""
+    import shutil
+    import tempfile
+
+    import pycwt_torch as pt
+    from pycwt_torch import coherence as tco
+    from pycwt_torch import stats as tst
+    from pycwt_torch.analysis import wct_analysis
+    from pycwt_torch.config import CWTConfig
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+    from pycwt_torch.sample import load
+
+    cache_dir = tempfile.mkdtemp(prefix="pycwt_mc_cache_")
+    old_cache = os.environ.get("PYCWT_TPU_CACHE_DIR")
+    os.environ["PYCWT_TPU_CACHE_DIR"] = cache_dir      # no curve from an earlier run
+    try:
+        g, al1, al2, kw = _mc_args()
+        ref = g["sig95"]
+        mc = dict(mc_count=MC_COUNT, seed=MC_SEED, cache=False, progress=False, **kw)
+        n, nfft, scales, oc, chunk_kw = _mc_chunk_inputs()
+        S = scales.shape[0]
+        auto = tco._mc_auto_batch(MC_COUNT, S, nfft, n)
+        out = dict(auto_batch=auto, S=S, n=n, nfft=nfft, routes={})
+        for small in (False, True):
+            name = "cwt_direct" if small else "default"
+            with _route(small):
+                r = out["routes"][name] = {}
+                _reset_counts()
+                sig95 = tco.wct_significance(al1, al2, **mc)
+                torch.cuda.synchronize()
+                r["launches"] = dict(fc.KERNEL_LAUNCHES)
+                r["bands"] = _mc_bands(sig95, ref, f"MC {name}")
+                want = (("cwt_direct",) if small else ("cwt_stage_a", "cwt_stage_b"))
+                check(all(r["launches"][k] > 0 for k in want)
+                      and sum(r["launches"].values()) == sum(r["launches"][k] for k in want),
+                      f"MC {name}: wrong kernels launched: {r['launches']}")
+                # chunking: curves and summed histograms bit for bit
+                key = tst.PRNGKey(MC_SEED, device="cuda")
+                for b in (64, 7):
+                    other = tco.wct_significance(al1, al2, mc_batch=b, **mc)
+                    check(np.array_equal(np.isnan(other), np.isnan(sig95))
+                          and np.array_equal(other[np.isfinite(other)],
+                                             sig95[np.isfinite(sig95)]),
+                          f"MC {name}: mc_batch {b} changed the curve")
+                hists = [sum(tco._mc_histogram_chunk(key, s0, scales, oc, kw["dt"],
+                                                     batch=min(b, MC_COUNT - s0), **chunk_kw)
+                             for s0 in range(0, MC_COUNT, b)) for b in (auto, 64, 7)]
+                check(all(torch.equal(h, hists[0]) for h in hists[1:]),
+                      f"MC {name}: summed histograms differ across mc_batch")
+                check(int(hists[0].sum()) == MC_COUNT * int(oc.sum()), "MC histogram total")
+                # the chunk's forward transform: 2 x 300 rows against the plain version
+                k1, k2 = tst.split(key)
+                idx = torch.arange(MC_COUNT, device="cuda")
+                y = torch.cat([tst.rednoise_members(k, idx, n, a, dtype=torch.float32)
+                               for k, a in ((k1, al1), (k2, al2))])
+                # R² of the first members, bit for bit at 300, 64 and 7 members
+                # a call: cuFFT's plans and the band product's cuBLAS call
+                # change with the batch, the rows must not
+                R2 = [tco._wct_core(y[:b], y[MC_COUNT:MC_COUNT + b], scales, kw["dt"],
+                                    mother=pt.Morlet(6), nfft=nfft, dj=kw["dj"])[0]
+                      for b in (MC_COUNT, 64, 7)]
+                check(all(torch.equal(r2, R2[0][:r2.shape[0]]) for r2 in R2[1:]),
+                      f"MC {name}: R2 rows change with the batch")
+                del R2
+                sr, si = fft_of_real_planar(y, nfft)
+                fkw = dict(mother=pt.Morlet(6), nfft=nfft, dt=kw["dt"])
+                wr, wi = fc.fused_cwt_planar(sr, si, scales, **fkw)
+                plain = fc._direct_reference if small else fc._fused_cwt_planar_reference
+                rr, ri = plain(sr, si, scales, **fkw)
+                scale_w = float(torch.sqrt(rr * rr + ri * ri).max())
+                err = max(float((wr - rr).abs().max()), float((wi - ri).abs().max())) / scale_w
+                check(err < TIER_BOUND["high"], f"MC {name}: chunk transform vs plain {err}")
+                r["chunk_err"] = err
+                del wr, wi, rr, ri, sr, si, y
+                # no host sync between chunks
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    tco._mc_histogram_run(key, 0, scales, oc, kw["dt"], batch=100,
+                                          nchunks=3, **chunk_kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                # peak memory of the 300-member run (auto mc_batch)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                tco.wct_significance(al1, al2, **mc)
+                r["peak_per_member"] = (torch.cuda.max_memory_allocated() - base) / auto
+                r["sig95"] = sig95
+            log(f"MC {name}: auto mc_batch {auto}, peak {r['peak_per_member']:.4e} bytes a member, "
+                f"launches {r['launches']}, bands max {r['bands'][0]:.4f} mean "
+                f"{r['bands'][1]:.4f}, chunk transform vs plain {r['chunk_err']:.3e} of "
+                f"max|W|; R2 rows, curves and histograms at mc_batch {auto}/64/7 "
+                f"bit-identical; no host sync in a run of chunks")
+        # the 300-member run on each route, timed in turns (default, cwt_direct,
+        # cwt_direct, default), each turn the median of 5 after a warm-up
+        turns = {"default": [], "cwt_direct": []}
+        for name in ("default", "cwt_direct", "cwt_direct", "default"):
+            with _route(name == "cwt_direct"):
+                turns[name].append(time_ms(lambda: tco.wct_significance(al1, al2, **mc),
+                                           runs=5, warmup=1))
+        for name, times in turns.items():
+            out["routes"][name]["ms"] = float(np.mean(times))
+            out["routes"][name]["ms_turns"] = times
+        log("MC 300 members, CUDA events in turns default/cwt_direct/cwt_direct/default "
+            f"(median of 5 each): default {turns['default']} ms, cwt_direct "
+            f"{turns['cwt_direct']} ms")
+        out["model_per_member"] = tco._mc_member_bytes(S, nfft, n)
+        # the generator alone: the two signals' 300 members, as one chunk draws them
+        key = tst.PRNGKey(MC_SEED, device="cuda")
+        k1, k2 = tst.split(key)
+        idx = torch.arange(MC_COUNT, device="cuda")
+
+        def draw():
+            for k, a in ((k1, al1), (k2, al2)):
+                tst.rednoise_members(k, idx, n, a, dtype=torch.float32)
+
+        out["generator_ms"] = time_ms(draw, runs=11)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draw()
+        out["generator_host_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        # the same members in f64 on the CPU: the card's f32 curve beside it
+        cpu = tco.wct_significance(al1, al2, mc_batch=60, device="cpu",
+                                   config=CWTConfig(dtype=torch.float64), **mc)
+        finite = np.isfinite(cpu)
+        out["vs_cpu_f64"] = {k: float(np.abs(r["sig95"][finite] - cpu[finite]).max())
+                             for k, r in out["routes"].items()}
+        check(all(v < MC_BANDS["mean"] for v in out["vs_cpu_f64"].values()),
+              f"MC: card f32 vs CPU f64 on the same members {out['vs_cpu_f64']}")
+        # the batched surface: 8 distinct nulls, two pair blocks
+        a1 = [0.0, 0.1, 0.2, 0.3, 0.45, 0.6, 0.75, 0.9]
+        a2 = [0.05, 0.5, 0.0, 0.35, 0.2, 0.1, 0.6, 0.3]
+        bkw = dict(alpha_quant=0, **mc)
+        _reset_counts()
+        curves = [tco.wct_significance_batch(a1, a2, pair_block=pb, **bkw) for pb in (8, 3)]
+        torch.cuda.synchronize()
+        blaunch = dict(fc.KERNEL_LAUNCHES)
+        check(_four_step_only(blaunch), f"wct_significance_batch launches {blaunch}")
+        check(curves[0].shape == (8, kw["J"] + 1)
+              and np.array_equal(np.nan_to_num(curves[0], nan=-1.0),
+                                 np.nan_to_num(curves[1], nan=-1.0)),
+              "wct_significance_batch: pair_block changed the curves")
+        out["batch_ms"] = time_ms(lambda: tco.wct_significance_batch(a1, a2, **bkw),
+                                  runs=3, warmup=1)
+        # wct_analysis(sig=True) on the default route, against the golden
+        jao, jba = load("jao"), load("jbaltic")
+        nn = min(jao.values.size, jba.values.size)
+        _reset_counts()
+        res = wct_analysis(jao.values[:nn], jba.values[:nn], jao.dt, significance_level=0.95,
+                           mc_count=MC_COUNT, seed=MC_SEED, progress=False)
+        torch.cuda.synchronize()
+        alaunch = dict(fc.KERNEL_LAUNCHES)
+        check(_four_step_only(alaunch), f"wct_analysis(sig=True) launches {alaunch}")
+        out["analysis_bands"] = _mc_bands(res["sig95"], ref, "wct_analysis(sig=True)")
+        gf = np.load(os.path.join(GOLDEN, "figure_jao_jbaltic.npz"))
+        check(rel_err(res["WCT"], gf["wct"]) < WCT_BOUND, "wct_analysis WCT golden")
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        if old_cache is None:
+            os.environ.pop("PYCWT_TPU_CACHE_DIR", None)
+        else:
+            os.environ["PYCWT_TPU_CACHE_DIR"] = old_cache
+    ms_default = out["routes"]["default"]["ms"]
+    log(f"MC: generator (2 x 300 members, n {n}) {out['generator_ms']:.4f} ms by CUDA "
+        f"events ({100 * out['generator_ms'] / ms_default:.1f} % of the default route's "
+        f"run), {out['generator_host_ms']:.4f} ms of host time to enqueue; peak bytes a "
+        f"member {out['routes']['default']['peak_per_member']:.4e} (default), "
+        f"{out['routes']['cwt_direct']['peak_per_member']:.4e} (cwt_direct) vs the model's "
+        f"{out['model_per_member']:.4e}; card f32 vs CPU f64 on the same members, max "
+        f"|dsig95| {out['vs_cpu_f64']}; wct_significance_batch 8 nulls x 300 members "
+        f"{out['batch_ms']:.4f} ms, pair_block 8 and 3 bit-identical, launches {blaunch}; "
+        f"wct_analysis(sig=True) bands max {out['analysis_bands'][0]:.4f} mean "
+        f"{out['analysis_bands'][1]:.4f}, launches {alaunch}")
+    return out
+
+
+def phase_mc_trace():
+    """``--trace``: torch.profiler over one 300-member wct_significance run on
+    each route (after a warm-up): the device's busy time, its share of the
+    wall time under the profiler, and the largest device items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pycwt_torch import coherence as tco
+
+    _, al1, al2, kw = _mc_args()
+    mc = dict(mc_count=MC_COUNT, seed=MC_SEED, cache=False, progress=False, **kw)
+    for small in (False, True):
+        with _route(small):
+            tco.wct_significance(al1, al2, **mc)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tco.wct_significance(al1, al2, **mc)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        rows = _device_rows(prof, 1)
+        busy = sum(r[0] for r in rows)
+        ours = [(ms, cnt, re.search(r"cwt_\w+(<\d+>)?", key).group(0))
+                for ms, cnt, key in rows if "cwt_" in key]
+        log(f"trace, MC 300 members, route {'cwt_direct' if small else 'default (K1+K2)'}: "
+            f"{wall:.4f} ms wall under the profiler, device busy {busy:.4f} ms "
+            f"({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %, "
+            f"{sum(r[1] for r in rows):g} kernel launches; the port's kernels: " +
+            ", ".join(f"{name} {ms:.4f} ms x{cnt:g}" for ms, cnt, name in ours))
+        for ms, cnt, key in rows[:12]:
+            log(f"  {ms:.4f} ms  x{cnt:g}  {key[:90]}")
+
+
 def phase_direct_gradient():
     """Gradients through cwt_direct's autograd Function equal the plain
     version's at nfft = 2^12 within 1e-4 (tests/test_autodiff.py:91-111)."""
@@ -840,6 +1147,7 @@ def main():
     sizes = phase_direct_sizes()
     plans = phase_column_plans()
     phase_direct_gradient()
+    mc = phase_mc_significance()
     common = dict(route="cuda", source=KERNEL_SOURCE, library_ms=bench["lib_ms"],
                   library_call="torch.fft.ifft of the filtered (64, 2^20) complex64 product",
                   max_rel_err_by_tier=worst, planes_err_vs_f64=four_step_vs_f64,
@@ -873,6 +1181,10 @@ def main():
              max_rel_err_by_tier=worst_direct, planes_err_vs_f64=direct_vs_f64,
              shape=f"B=2, K=2048, N=4096, S={real['S']}, Morlet-6, planes", card=card),
     ]
+    mc_launches = {k: r["launches"] for k, r in mc["routes"].items()}
+    for k in kernels:
+        k["mc_launches_per_300_members"] = {
+            route: counts[k["name"]] for route, counts in mc_launches.items()}
     log(json.dumps({"pipeline_ms": bench["ms_pipe"], "pipeline_device_ms": bench["dev_pipe"],
                     "plain_pipeline_ms": bench["plain_pipe"],
                     "sample_scales_per_s": bench["rate"],
@@ -882,6 +1194,13 @@ def main():
                         str(n): [r["direct"], r["four"], r["ifft"]] for n, r in sizes.items()},
                     "stage_a_vs_stage_b_device_ms": {
                         str(n): [r["a"], r["b"]] for n, r in plans.items()},
+                    "mc_300_members_ms": {k: r["ms"] for k, r in mc["routes"].items()},
+                    "mc_peak_bytes_per_member": {
+                        k: r["peak_per_member"] for k, r in mc["routes"].items()},
+                    "mc_model_bytes_per_member": mc["model_per_member"],
+                    "mc_auto_batch": mc["auto_batch"], "mc_generator_ms": mc["generator_ms"],
+                    "mc_batch_8_nulls_ms": mc["batch_ms"],
+                    "mc_vs_cpu_f64_max_abs": mc["vs_cpu_f64"],
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -894,5 +1213,14 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--trace"]:
         phase_device()
         phase_wct_trace()
+        phase_mc_trace()
+    elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        phase_device()
+        phase_ab(sys.argv[2])
+    elif sys.argv[1:2] == ["--time-wct"] and len(sys.argv) == 3:
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        phase_device()
+        phase_build()
+        phase_wct_timing()
     else:
         main()

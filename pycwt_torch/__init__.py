@@ -6,20 +6,22 @@ defaults and return contracts, with the hot loop of the forward transform
 (:mod:`pycwt_torch.ops.fused_cwt`) and everything else in plain PyTorch.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
-Ported so far: the forward-CWT main path, the TC98 statistics, XWT and WCT
-without Monte-Carlo significance; the rest of ``pycwt_tpu/__init__.py``'s
-exports are listed in ``ROADMAP.md``.
+Ported so far: the forward-CWT main path, the TC98 statistics, XWT, WCT and
+its Monte-Carlo significance (single pair and batched); the rest of
+``pycwt_tpu/__init__.py``'s exports are listed in ``ROADMAP.md``.
 """
 
 from . import mothers, sample  # noqa: F401
 from .api import cwt, cwt_power, icwt, significance  # noqa: F401
-from .coherence import wct, xwt, xwt_planar  # noqa: F401
+from .coherence import (wct, wct_significance,  # noqa: F401
+                        wct_significance_batch, xwt, xwt_planar)
 from .mothers import DOG, MexicanHat, Morlet, Paul  # noqa: F401
 from .stats import ar1, ar1_batch, ar1_spectrum, rednoise  # noqa: F401
 from .utils.helpers import boxpdf, find, get_cache_dir, rect  # noqa: F401
 
 __all__ = [
     "cwt", "cwt_power", "icwt", "significance", "xwt", "xwt_planar", "wct",
+    "wct_significance", "wct_significance_batch",
     "mothers", "Morlet", "Paul", "DOG", "MexicanHat",
     "ar1", "ar1_batch", "ar1_spectrum", "rednoise", "find", "rect", "boxpdf",
     "get_cache_dir",

@@ -41,7 +41,7 @@ def _planar(device, n0: int) -> bool:
     from .ops.fft import resolve_engine
     from .ops.mxu_dft import supported_n
 
-    return (resolve_engine(DEFAULT.engine, device) == "planar"
+    return (resolve_engine(DEFAULT.engine, device, DEFAULT.real_dtype) == "planar"
             and supported_n(DEFAULT.fft_length(n0)))
 
 
@@ -240,8 +240,9 @@ def wct_analysis(y1, y2, dt, dj=1 / 12, s0=-1, J=-1,
                  significance_level: float = 0.8646, mother="morlet",
                  sig: bool = True, device=None, **kwargs):
     """Wavelet-coherence analysis of a signal pair (``sample_xwt.py:151-154``).
-    ``sig=True`` raises ``NotImplementedError`` as :func:`~pycwt_torch.wct`
-    does."""
+    ``sig=True`` adds the Monte-Carlo significance curve
+    (:func:`~pycwt_torch.coherence.wct_significance`, which takes
+    ``kwargs``)."""
     WCT, aWCT, coi, freq, sig95 = _wct(
         np.asarray(y1, np.float64), np.asarray(y2, np.float64), dt, dj=dj,
         s0=s0, J=J, sig=sig, significance_level=significance_level,

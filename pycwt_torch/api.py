@@ -81,7 +81,7 @@ def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     ``output="planes"`` returns ``(wr, wi, sj, freqs, coi)`` with each plane
     ``(n_scales, n0)`` f32; ``output="power"`` returns ``(power, sj, freqs,
     coi)`` with |W|² written by the kernel's epilogue.  Needs a pow-2
-    ``nfft``."""
+    ``nfft``; computes in f32 whatever ``config.dtype`` says."""
     from .ops.fused_cwt import fused_cwt_planar
     from .ops.mxu_dft import fft_of_real_planar
 
@@ -111,21 +111,22 @@ def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
 def cwt_power(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
               freqs=None, config: CWTConfig = DEFAULT, device=None):
     """Wavelet power ``|W|²``, same grid/COI/NaN-row semantics as
-    :func:`cwt`.  Under engine ``"planar"`` (the CUDA default) and a pow-2
+    :func:`cwt`.  Under engine ``"planar"`` (the CUDA default for f32) and a pow-2
     ``nfft`` the kernels write |W|² in their epilogue, so W never leaves
     the card.
 
     Returns ``(power, sj, freqs, coi)`` with ``power`` of shape
     ``(n_scales, n0)``.
     """
-    from .ops.fft import resolve_engine
+    from .ops.fft import resolve_engine, warn_planar_downcast
     from .ops.mxu_dft import supported_n
 
     device = _resolve_device(device)
     signal = np.asarray(signal)
     nfft = config.fft_length(len(signal))
-    engine = resolve_engine(config.engine, device)
+    engine = resolve_engine(config.engine, device, config.real_dtype)
     if engine == "planar" and supported_n(nfft):
+        warn_planar_downcast(config.real_dtype)
         return _cwt_planar_parts(signal, dt, dj=dj, s0=s0, J=J,
                                  wavelet=wavelet, freqs=freqs, config=config,
                                  output="power", device=device)

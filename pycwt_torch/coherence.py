@@ -1,36 +1,53 @@
-"""Cross-wavelet transform (XWT) and wavelet coherence (WCT).
+"""Cross-wavelet transform (XWT), wavelet coherence (WCT) and its
+Monte-Carlo significance.
 
-Counterpart of the single-pair surfaces of ``pycwt_tpu/coherence.py``:
+Counterpart of the single-pair and Monte-Carlo surfaces of
+``pycwt_tpu/coherence.py``:
 
 * :func:`xwt`, :func:`xwt_planar` — reference ``wavelet.py:316-419``;
 * :func:`wct` — reference ``wavelet.py:422-528``, for every mother with a
-  tabulated ``deltaj0`` (the reference only defines smoothing on Morlet).
+  tabulated ``deltaj0`` (the reference only defines smoothing on Morlet);
+* :func:`wct_significance` — reference ``wavelet.py:531-647``, and
+  :func:`wct_significance_batch`, the same for many AR(1) nulls at once.
 
 The entry points take ``device=None``, meaning the card; without one they
-raise and name ``device="cpu"``.  On a CUDA tensor the WCT runs the planar
-pipeline (:func:`_wct_core_planar`): the forward CWTs go through
+raise and name ``device="cpu"``.  On a CUDA tensor in f32 the WCT runs the
+planar pipeline (:func:`_wct_core_planar`): the forward CWTs go through
 ``fused_cwt_planar``, so the CUDA kernels ``cwt_stage_a``/``cwt_stage_b``
 run, or ``cwt_direct`` for nfft ≤ 2^12 under ``PYCWT_TPU_SMALL_KERNEL=1``.
-``wct(sig=True)``, the reference's default, needs the Monte-Carlo
-significance, which this package does not have yet: it raises
-``NotImplementedError``.
+
+The Monte-Carlo significance draws its AR(1) surrogates from ``jax.random``'s
+own threefry streams (``stats.rednoise_members*``), so for one seed the port
+and ``pycwt_tpu`` simulate the same members.  Each chunk of members is one
+batched pipeline on the device: surrogates → :func:`_wct_core` → integer
+counts of floor(R²·1000) outside the COI (``scatter_add_``); the chunks
+accumulate on the device and only the (J+1, 1000) histogram comes back to
+the host for the empirical CDF.
 """
 from __future__ import annotations
 
-import warnings
+import math
+import os
+import zipfile
+import zlib
 
 import numpy as np
 import torch
 
 from .config import CWTConfig, DEFAULT
 from .mothers import Mother, as_mother
-from .ops.fft import resolve_engine
+from .ops.fft import resolve_engine, warn_planar_downcast
 from .ops.smoothing import smooth, smooth_planar_pair
-from .stats import ar1, ar1_spectrum
+from .stats import (PRNGKey, _burn_in, ar1, ar1_spectrum, rednoise_members,
+                    rednoise_members_pairs, split)
 from .transform import (build_scale_grid, coi_bartlett, cwt_batch,
                         drop_reference_nan_rows)
+from .utils.helpers import find, get_cache_dir
 
-__all__ = ["xwt", "xwt_planar", "wct"]
+__all__ = ["xwt", "xwt_planar", "wct", "wct_significance",
+           "wct_significance_batch"]
+
+NBINS = 1000  # histogram resolution of the MC coherence CDF (wavelet.py:606)
 
 
 def _normalized(y1, y2, normalize: bool):
@@ -172,15 +189,8 @@ def _wct_core(y1n, y2n, scales, dt, *, mother: Mother, nfft: int, dj: float,
     planar pair ``(W12r, W12i)``.
     """
     y1n = torch.as_tensor(y1n)
-    if resolve_engine(engine, y1n.device) == "planar":
-        if y1n.dtype == torch.float64:
-            # The planar kernels are f32-only; never downgrade f64 parity
-            # inputs silently.
-            warnings.warn(
-                "engine='planar' computes in float32; float64 inputs are "
-                "downcast. Use engine='xla' (or 'mxu') for f64 parity runs.",
-                stacklevel=2,
-            )
+    if resolve_engine(engine, y1n.device, y1n.dtype) == "planar":
+        warn_planar_downcast(y1n.dtype)
         return _wct_core_planar(y1n, y2n, scales, dt, mother=mother,
                                 nfft=nfft, dj=dj)
     cfg = CWTConfig(dtype=y1n.dtype)
@@ -205,17 +215,12 @@ def wct(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, sig=True, significance_level=0.95,
 
     Returns ``(WCT, aWCT, coi, freq, sig)`` as the reference, with
     ``sig = [0]`` under ``sig=False``.  ``config`` selects padding policy,
-    dtype and engine.  ``sig=True`` (the default) raises
-    ``NotImplementedError``: the Monte-Carlo significance
-    (``wct_significance``) is not ported yet (ROADMAP.md queue 1 item 7).
+    dtype and engine for the whole pipeline, the Monte-Carlo significance
+    included; ``kwargs`` go to :func:`wct_significance` (``mc_count``,
+    ``cache``, ``progress``, ``seed``, ...), which runs on ``device`` too.
     """
     from .api import _host, _resolve_device
 
-    if sig:
-        raise NotImplementedError(
-            "wct(sig=True) needs the Monte-Carlo significance "
-            "(wct_significance), which pycwt_torch does not have yet "
-            "(ROADMAP.md queue 1 item 7); pass sig=False")
     device = _resolve_device(device)
     mother = as_mother(wavelet)
     y1 = np.asarray(y1)
@@ -241,4 +246,551 @@ def wct(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, sig=True, significance_level=0.95,
         dt, mother=mother, nfft=nfft, dj=dj, engine=config.engine,
     )
     coi = coi_bartlett(n0, dt, mother)
-    return _host(WCT[0]), _host(aWCT[0]), coi, freq, np.asarray([0])
+
+    if sig:
+        a1, _, _ = ar1(y1)
+        a2, _, _ = ar1(y2)
+        sig_out = wct_significance(
+            a1, a2, dt=dt, dj=dj, s0=s0, J=J,
+            significance_level=significance_level, wavelet=mother,
+            config=config, device=device, **kwargs,
+        )
+    else:
+        sig_out = np.asarray([0])
+    return _host(WCT[0]), _host(aWCT[0]), coi, freq, sig_out
+
+
+# --------------------------------------------------------------------------
+# Monte-Carlo significance
+# --------------------------------------------------------------------------
+
+def _histogram(R2, outsidecoi, valid=None):
+    """Integer counts of ``clip(floor(R²·NBINS), 0, NBINS−1)`` over the
+    cells outside the COI (wavelet.py:628): ``R2`` is ``(..., B, S, n)``,
+    ``outsidecoi`` ``(S, n)`` bool and ``valid`` an optional ``(B,)`` member
+    mask; returns ``(..., S, NBINS)`` int64 counts, summed over B.
+
+    One ``scatter_add_`` of ones into ``s·NBINS + bin``, with every cell
+    left out sent to one spare slot past the end: no host sync, and the
+    counts are exact in any order.  A NaN R² counts in bin 0 and ±inf in
+    the end bins, as ``pycwt_tpu``'s int cast puts them (and no index
+    falls outside the counts)."""
+    *lead, _, S, _ = R2.shape
+    groups = math.prod(lead)
+    dev = R2.device
+    bins = torch.nan_to_num(torch.floor(R2 * NBINS), nan=0.0)
+    bins = bins.clamp_(0, NBINS - 1).to(torch.int64)
+    cell = torch.arange(groups * S, device=dev).view(*lead, 1, S, 1) * NBINS
+    keep = outsidecoi if valid is None else outsidecoi & valid[:, None, None]
+    idx = torch.where(keep, cell + bins, groups * S * NBINS).reshape(-1)
+    counts = torch.zeros(groups * S * NBINS + 1, dtype=torch.int64, device=dev)
+    counts.scatter_add_(0, idx, torch.ones((), dtype=torch.int64,
+                                           device=dev).expand(idx.numel()))
+    return counts[:-1].view(*lead, S, NBINS)
+
+
+def _mc_histogram_chunk(key, start: int, scales, outsidecoi, dt, *,
+                        mother: Mother, nfft: int, dj: float, batch: int,
+                        n: int, al1: float, al2: float,
+                        engine: str | None = None):
+    """One Monte-Carlo chunk on the device: ``batch`` surrogate pairs →
+    coherence → per-scale counts ``(S, NBINS)`` int64.
+
+    ``start`` is the chunk's first *global* ensemble index: member streams
+    are keyed by global index (:func:`pycwt_torch.stats.rednoise_members`),
+    so the summed histogram is the same for any chunking of one
+    ``(seed, mc_count)``."""
+    k1, k2 = split(key)
+    idx = start + torch.arange(batch, device=scales.device)
+    noise1 = rednoise_members(k1, idx, n, al1, 1.0, dtype=scales.dtype)
+    noise2 = rednoise_members(k2, idx, n, al2, 1.0, dtype=scales.dtype)
+    R2, _, _ = _wct_core(noise1, noise2, scales, dt, mother=mother, nfft=nfft,
+                         dj=dj, engine=engine)
+    return _histogram(R2, outsidecoi)
+
+
+def _mc_histogram_run(key, start: int, scales, outsidecoi, dt, *,
+                      mother: Mother, nfft: int, dj: float, batch: int,
+                      nchunks: int, n: int, al1: float, al2: float,
+                      engine: str | None = None):
+    """``nchunks`` consecutive chunks of ``batch`` members from ``start``,
+    their ``(S, NBINS)`` counts summed on the device: nothing comes back to
+    the host between chunks.  Equal to ``nchunks`` chunk calls."""
+    acc = torch.zeros((scales.shape[0], NBINS), dtype=torch.int64,
+                      device=scales.device)
+    for i in range(nchunks):
+        acc += _mc_histogram_chunk(
+            key, start + i * batch, scales, outsidecoi, dt, mother=mother,
+            nfft=nfft, dj=dj, batch=batch, n=n, al1=al1, al2=al2,
+            engine=engine)
+    return acc
+
+
+def mc_significance_from_histogram(wlc: np.ndarray, maxscale: int,
+                                   significance_level: float,
+                                   outsidecoi_any: np.ndarray) -> np.ndarray:
+    """Host-side empirical-CDF readout of the MC histogram, replicating the
+    reference's masked-cumsum + interp (``wavelet.py:632-640``) including its
+    initialization quirks: rows that never poke outside the COI stay 0, and
+    row ``maxscale`` itself remains NaN."""
+    J1 = wlc.shape[0]
+    sig95 = np.zeros(J1)
+    sig95[outsidecoi_any] = np.nan
+    R2y = (np.arange(NBINS) + 0.5) / NBINS
+    for s in range(maxscale):
+        sel = wlc[s, :] > 0
+        if not sel.any():
+            continue
+        P = wlc[s, sel].cumsum()
+        P = (P - 0.5) / P[-1]
+        sig95[s] = np.interp(significance_level, P, R2y[sel])
+    return sig95
+
+
+def _sig_alpha_fold(al1: float, al2: float) -> np.ndarray:
+    """The reference's α quantization for MC-cache filenames
+    (``wavelet.py:575-576``): ``round(arctanh(4α))`` folded to positives with
+    a .5 offset for negatives.  α > 0.25 puts arctanh out of domain: the
+    reference formats the nan into the filename, so every such pair shares
+    one entry; replicated."""
+    with np.errstate(invalid="ignore"):
+        aa = np.round(np.arctanh(np.array([al1, al2]) * 4))
+    return np.abs(aa) + 0.5 * (aa < 0)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _resolved_policy(config: CWTConfig, device=None) -> tuple[str, str, int]:
+    """(engine, real dtype, pad_pow2) as they resolve on ``device``."""
+    rdt = config.real_dtype
+    return (resolve_engine(config.engine, device, rdt), _dtype_name(rdt),
+            int(config.pad_pow2))
+
+
+def _sig_cache_name(al1: float, al2: float, dj: float, s0: float, dt: float,
+                    J: int, mother: Mother, mc_count: int, seed: int,
+                    config: CWTConfig, device=None) -> str:
+    """``pycwt_tpu``'s MC-cache filename, byte for byte: the reference's
+    name (``wavelet.py:575-578``) for the default ``(mc_count=300, seed=0)``
+    under f64 ``xla`` with pow-2 padding, suffixed for other counts and
+    seeds and for every other resolved numeric policy (resolved on
+    ``device``: f32 on the card is ``planar``)."""
+    aa = _sig_alpha_fold(al1, al2)
+    name = "wct_sig_{:0.5f}_{:0.5f}_{:0.5f}_{:0.5f}_{:d}_{}".format(
+        aa[0], aa[1], dj, s0 / dt, J, mother.name)
+    if (mc_count, seed) != (300, 0):
+        name += f"_mc{mc_count}_seed{seed}"
+    eng, rdt, pp = _resolved_policy(config, device)
+    if (eng, rdt, pp) != ("xla", "float64", 1):
+        name += f"_cfg{eng}-{rdt}-p{pp}"
+    return name
+
+
+def _sig_cfg_tag(config: CWTConfig, device=None) -> str:
+    eng, rdt, pp = _resolved_policy(config, device)
+    return f"pycwt_tpu cfg={eng}-{rdt}-p{pp}"
+
+
+def _sig_cache_read(path: str, config: CWTConfig, device=None):
+    """Read a cached significance curve, honoring the numeric-policy header.
+
+    Curves carry a ``# pycwt_tpu cfg=...`` header naming the resolved policy
+    that computed them (``np.loadtxt`` skips it, so the reference reads the
+    files too).  A header naming another policy raises ``OSError``, a miss;
+    headerless files (the reference's own) are accepted."""
+    import gzip
+
+    with gzip.open(path, "rt") as f:
+        first = f.readline()
+    if first.startswith("#") and "cfg=" in first:
+        if first.lstrip("# ").rstrip() != _sig_cfg_tag(config, device):
+            raise OSError(
+                f"cached curve {path} was computed under a different "
+                "resolved numeric policy")
+    return np.loadtxt(path, unpack=True)
+
+
+def _sig_cache_lookup(path: str, config: CWTConfig, device=None):
+    """:func:`_sig_cache_read`, or None on a miss: a missing, foreign or
+    unreadable entry (a truncated .gz raises EOFError, a garbled one
+    ValueError) is recomputed, never an error."""
+    try:
+        return _sig_cache_read(path, config, device)
+    except (OSError, EOFError, ValueError):
+        return None
+
+
+def _sig_cache_write(path: str, curve: np.ndarray, config: CWTConfig,
+                     device=None) -> None:
+    """Write a curve through a temporary file and ``os.replace``, so a
+    reader never sees a half-written entry."""
+    root, ext = os.path.splitext(path)
+    tmp = f"{root}.tmp{os.getpid()}{ext}"   # keeps .gz: savetxt compresses
+    np.savetxt(tmp, curve, header=_sig_cfg_tag(config, device))
+    os.replace(tmp, path)
+
+
+def _auto_alpha_quant(mc_count: int) -> float:
+    """Default null-dedup quantization, matched to the ensemble's own
+    sampling noise: ``clip(0.05·sqrt(300/mc_count), 0.01, 0.05)``."""
+    return float(np.clip(0.05 * np.sqrt(300.0 / max(mc_count, 1)),
+                         0.01, 0.05))
+
+
+def _canonical_null_key(a1: float, a2: float, q: float) -> tuple:
+    """Sorted, ``q``-rounded canonical key of an unordered coefficient pair
+    — the unit of Monte-Carlo null deduplication.  The top quantization cell
+    clamps to q/2 inside the stationarity boundary (|α| in [1 − q/2, 1)
+    would otherwise round to ±1, where the burn-in diverges).  ``q=0``
+    shares only exactly-equal sorted pairs."""
+    if not q:
+        return tuple(sorted((float(a1), float(a2))))
+
+    def _one(v):
+        v = round(v / q) * q
+        return float(np.sign(v) * min(abs(v), 1.0 - q / 2))
+
+    return tuple(sorted((_one(a1), _one(a2))))
+
+
+def _mc_member_bytes(S: int, nfft: int, n: int) -> int:
+    """Live bytes per member (one surrogate pair) of a Monte-Carlo chunk in
+    this package's pipeline, counted in f32 planes: 10 on the (S, nfft) grid
+    at the peak (both W's planes, K1's T and the smoothing's FFT chain) and
+    9 on the (S, n) grid (the smoothing's inputs and outputs, and the
+    histogram's int64 bins and indices).  ``chip_smoke.py`` measures the
+    peak beside it: 5.29e6 bytes at the JAO/JBaltic shape (S = 76,
+    nfft = 1024, n = 885) on the H100, against this model's 5.53e6."""
+    return 4 * (10 * S * nfft + 9 * S * n)
+
+
+def _mc_auto_batch(mc_count: int, S: int, nfft: int, n: int,
+                   budget_bytes: float = 25e9) -> int:
+    """Largest Monte-Carlo chunk whose live bytes (:func:`_mc_member_bytes`
+    a member) fit ``budget_bytes``: the JAX package's 5e9 of a 16 GB v5e
+    scaled to the 80 GB H100 (the same 31 %).  At most 1024 members, and a
+    count that does not fit is split into equal chunks."""
+    fit = max(1, int(budget_bytes // _mc_member_bytes(S, nfft, n)))
+    cap = min(mc_count, fit, 1024)
+    if cap < mc_count:
+        nch = -(-mc_count // cap)
+        cap = -(-mc_count // nch)
+    return cap
+
+
+def _surrogate_grid(dt, dj, s0, J, mother: Mother):
+    """Surrogate length n = ceil(6·s0·2^(J·dj)/dt), so the largest scale
+    pokes outside the COI (wavelet.py:592-593), its scales, and the COI
+    masks: ``(n, sj, outsidecoi (S, n), outsidecoi_any (S,), maxscale)``."""
+    ms = s0 * (2 ** (J * dj)) / dt
+    n = int(np.ceil(ms * 6))
+    grid = build_scale_grid(n, dt, dj=dj, s0=s0, J=J, mother=mother)
+    coi = coi_bartlett(n, dt, mother)
+    period = 1.0 / grid.freqs[:, None] * np.ones((1, n))
+    outsidecoi = period <= coi[None, :]
+    outsidecoi_any = outsidecoi.any(axis=1)
+    return n, grid.sj, outsidecoi, outsidecoi_any, int(find(outsidecoi_any)[-1])
+
+
+def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
+                     wavelet="morlet", mc_count=300, progress=True, cache=True,
+                     seed=0, mc_batch=None, config: CWTConfig = DEFAULT,
+                     checkpoint: str | None = None, device=None):
+    """Monte-Carlo WCT significance levels.
+
+    Same contract and cache format as the reference (``wavelet.py:531-647``)
+    and ``pycwt_tpu``: ``mc_count`` AR(1) surrogate pairs of length
+    ``ceil(6·maxscale/dt)``, a 1000-bin coherence histogram per scale, and
+    the ``significance_level`` quantile of its empirical CDF.
+
+    * Members are drawn in device chunks of ``mc_batch`` (``None``: the
+      largest that fits :func:`_mc_auto_batch`'s bytes model) from JAX's
+      threefry streams keyed by ``seed`` and global member index, so
+      chunking never changes the result, and the curve is ``pycwt_tpu``'s
+      for the same seed (to the last bits of the WCT).
+    * The disk cache under ``get_cache_dir()`` uses ``pycwt_tpu``'s file
+      names and header; an unreadable entry is a miss, and entries are
+      written through a temporary file.
+    * ``checkpoint`` (a path) writes the (J+1, 1000) histogram and the
+      done-count after every chunk, in ``pycwt_tpu``'s format; a restarted
+      call resumes from the next undone member, bit-identical to an
+      uninterrupted run.  Without one, the chunks run back to back on the
+      device and the histogram is fetched once.
+    * ``device=None`` means the card (it raises without one).
+    """
+    from .api import _resolve_device
+
+    device = _resolve_device(device)
+    mother = as_mother(wavelet)
+
+    if cache:
+        cache_file = _sig_cache_name(al1, al2, dj, s0, dt, J, mother,
+                                     mc_count, seed, config, device)
+        cache_path = f"{get_cache_dir()}/{cache_file}.gz"
+        cached = _sig_cache_lookup(cache_path, config, device)
+        if cached is not None:
+            print("NOTE: WCT significance loaded from cache.\n")
+            return cached
+
+    if progress:
+        print("Calculating wavelet coherence significance")
+
+    n, sj, outsidecoi, outsidecoi_any, maxscale = _surrogate_grid(
+        dt, dj, s0, J, mother)
+    nfft = config.fft_length(n)
+    if mc_batch is None:
+        mc_batch = _mc_auto_batch(mc_count, J + 1, nfft, n)
+        if progress:
+            print(f"  mc_batch auto-sized to {mc_batch}")
+    dtype = config.real_dtype
+    scales_t = torch.as_tensor(sj, dtype=dtype, device=device)
+    oc = torch.as_tensor(outsidecoi, device=device)
+    kw = dict(mother=mother, nfft=nfft, dj=dj, n=n, al1=float(al1),
+              al2=float(al2), engine=config.engine)
+
+    wlc = np.zeros((J + 1, NBINS), dtype=np.float64)
+    key = PRNGKey(seed, device=device)
+    done = 0
+
+    # pycwt_tpu's checkpoint fingerprint: every input that shapes the
+    # histogram except mc_count (members are keyed by global index, so a
+    # checkpoint of members [0, done) serves any count >= done).
+    config_tag = float(zlib.crc32(
+        f"{mother!r}|{config.engine}|{_dtype_name(dtype)}".encode()))
+    ckpt_meta = np.array([seed, J, float(al1), float(al2), dj,
+                          s0, dt, config_tag], dtype=np.float64)
+    if checkpoint is not None:
+        try:
+            z = np.load(checkpoint)
+            if (z["meta"].shape == ckpt_meta.shape
+                    and np.allclose(z["meta"], ckpt_meta)
+                    and z["wlc"].shape == wlc.shape
+                    and int(z["done"]) <= mc_count):
+                wlc = np.asarray(z["wlc"], np.float64)
+                done = int(z["done"])
+                if progress:
+                    print(f"  resumed MC from checkpoint at {done}/{mc_count}")
+        except (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile):
+            pass   # no, foreign or truncated checkpoint: start afresh
+
+    if checkpoint is None:
+        nch, tail = divmod(mc_count - done, mc_batch)
+        hist = _mc_histogram_run(key, done, scales_t, oc, dt, batch=mc_batch,
+                                 nchunks=nch, **kw)
+        if tail:
+            hist += _mc_histogram_chunk(key, done + nch * mc_batch, scales_t,
+                                        oc, dt, batch=tail, **kw)
+        wlc += hist.cpu().numpy()
+        done = mc_count
+        if progress:
+            print(f"  MC surrogates: {done}/{mc_count}", end="\r")
+    while done < mc_count:
+        b = min(mc_batch, mc_count - done)
+        hist = _mc_histogram_chunk(key, done, scales_t, oc, dt, batch=b, **kw)
+        wlc += hist.cpu().numpy()
+        done += b
+        tmp = f"{checkpoint}.tmp"
+        with open(tmp, "wb") as f:  # exact name (np.savez would append .npz)
+            np.savez(f, meta=ckpt_meta, wlc=wlc, done=np.int64(done))
+        os.replace(tmp, checkpoint)
+        if progress:
+            print(f"  MC surrogates: {done}/{mc_count}", end="\r")
+    if progress:
+        print()
+
+    sig95 = mc_significance_from_histogram(wlc, maxscale, significance_level,
+                                           outsidecoi_any)
+    if cache:
+        _sig_cache_write(cache_path, sig95, config, device)
+    return sig95
+
+
+def _mc_histogram_run_pairs(key, scales, outsidecoi, slots, g1, g2,
+                            mc_count: int, dt, *, mother: Mother, nfft: int,
+                            dj: float, batch: int, nchunks: int, n: int,
+                            tau: int, engine: str | None = None):
+    """Monte-Carlo counts ``(P, S, NBINS)`` int64 for ``P`` coefficient
+    pairs (``g1``, ``g2``: ``(P,)`` tensors) in ``nchunks`` chunks of
+    ``batch`` members, accumulated on the device.  Member ``(p, m)`` is
+    keyed by the pair's global slot ``slots[p]`` and the global member index
+    (:func:`pycwt_torch.stats.rednoise_members_pairs`); members with index ≥
+    ``mc_count`` (the last chunk's overdraw) count nothing, so the ensemble
+    holds exactly ``mc_count`` members for any ``batch``."""
+    P = g1.shape[0]
+    S = scales.shape[0]
+    dev = scales.device
+    k1, k2 = split(key)
+    acc = torch.zeros((P, S, NBINS), dtype=torch.int64, device=dev)
+    for i in range(nchunks):
+        idx = i * batch + torch.arange(batch, device=dev)
+        noise1 = rednoise_members_pairs(k1, slots, idx, n, g1, tau,
+                                        dtype=scales.dtype)
+        noise2 = rednoise_members_pairs(k2, slots, idx, n, g2, tau,
+                                        dtype=scales.dtype)
+        R2, _, _ = _wct_core(noise1.reshape(P * batch, n),
+                             noise2.reshape(P * batch, n), scales, dt,
+                             mother=mother, nfft=nfft, dj=dj, engine=engine)
+        acc += _histogram(R2.reshape(P, batch, S, n), outsidecoi,
+                          valid=idx < mc_count)
+    return acc
+
+
+def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
+                           wavelet="morlet", mc_count=300, progress=True,
+                           cache=True, seed=0, mc_batch=None,
+                           config: CWTConfig = DEFAULT,
+                           pair_block: int | None = None,
+                           alpha_quant: float | None = None,
+                           mesh=None, mesh_axis: str = "mc", device=None):
+    """:func:`wct_significance` for many ``(al1, al2)`` pairs in one run.
+
+    ``al1, al2``: ``(P,)`` arrays; returns ``(P, J+1)`` curves with
+    ``pycwt_tpu``'s contract: exactly ``mc_count`` members per null for any
+    ``mc_batch`` or ``pair_block``, the distinct nulls streamed through
+    blocks of ``pair_block`` pairs (default ≤ 64, or fewer where the bytes
+    model says so).
+
+    * **Null deduplication** (``alpha_quant``): pairs are canonicalized to
+      sorted, ``alpha_quant``-rounded coefficients (default
+      ``clip(0.05·sqrt(300/mc_count), 0.01, 0.05)``, ``0`` for exact
+      matches only); one ensemble per distinct key is simulated at the
+      quantized values and fanned out to every pair sharing it.  Its member
+      streams are keyed by ``crc32`` of the key, so a key draws the same
+      surrogates in any batch and whatever was cached.
+    * **Incremental cache** (``cache=True``): each pair's curve is read from
+      and written to the single-pair surface's cache entry; only the
+      missing nulls are computed, and each entry name is written once per
+      call (pairs with α > 0.25 share one name, as in the reference).
+    * ``mesh`` (multi-device) is not ported: a mesh raises.
+    """
+    from .api import _resolve_device
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "wct_significance_batch(mesh=...) runs on one device in "
+            "pycwt_torch; the multi-device surface is ROADMAP.md queue 1 "
+            "item 5 (multi-device)")
+    device = _resolve_device(device)
+    mother = as_mother(wavelet)
+    al1 = np.atleast_1d(np.asarray(al1, np.float64))
+    al2 = np.atleast_1d(np.asarray(al2, np.float64))
+    if al1.shape != al2.shape or al1.ndim != 1:
+        raise ValueError(
+            f"al1/al2 must be matching (P,) arrays, got {al1.shape} vs "
+            f"{al2.shape}")
+    if not (np.isfinite(al1).all() and np.isfinite(al2).all()):
+        bad = np.nonzero(~(np.isfinite(al1) & np.isfinite(al2)))[0]
+        raise ValueError(
+            f"non-finite AR(1) coefficients at pair slots {bad.tolist()} — "
+            "ar1_batch returns NaN for rows where ar1 would raise Warning; "
+            "mask those pairs or substitute a white-noise null (alpha=0)")
+    if (np.abs(al1) >= 1).any() or (np.abs(al2) >= 1).any():
+        bad = np.nonzero((np.abs(al1) >= 1) | (np.abs(al2) >= 1))[0]
+        raise ValueError(
+            f"|alpha| >= 1 at pair slots {bad.tolist()} — the AR(1) null is "
+            "only defined for stationary coefficients (and the burn-in would "
+            "explode); clip strong-trend fits inside (-1, 1) or use alpha=0")
+    P = len(al1)
+
+    sig = np.full((P, J + 1), np.nan)
+    have = np.zeros(P, dtype=bool)
+    if cache:
+        cache_dir = get_cache_dir()
+        paths = [f"{cache_dir}/" + _sig_cache_name(
+            al1[p], al2[p], dj, s0, dt, J, mother, mc_count, seed, config,
+            device) + ".gz" for p in range(P)]
+        for p in range(P):
+            cached = _sig_cache_lookup(paths[p], config, device)
+            if cached is not None:
+                sig[p] = cached
+                have[p] = True
+        if have.all():
+            if progress:
+                print("NOTE: WCT significance batch loaded from cache.\n")
+            return sig
+
+    if alpha_quant is None:
+        alpha_quant = _auto_alpha_quant(mc_count)
+    canon = [_canonical_null_key(al1[p], al2[p], alpha_quant)
+             for p in range(P)]
+    key_index: dict = {}
+    owner = np.full(P, -1)
+    for p in range(P):
+        if not have[p]:
+            owner[p] = key_index.setdefault(canon[p], len(key_index))
+    nulls = list(key_index)                        # distinct keys, in order
+    Pd = len(nulls)
+    rep_a1 = np.asarray([k[0] for k in nulls], np.float64)
+    rep_a2 = np.asarray([k[1] for k in nulls], np.float64)
+    # Member streams are keyed by a stable hash of the canonical key (not a
+    # position): the same null draws the same surrogates in any batch.
+    rep_slot = np.asarray([zlib.crc32(f"{a:.17g}|{b:.17g}".encode())
+                           & 0x7FFFFFFF for a, b in nulls], np.int64)
+
+    if progress:
+        print(f"Calculating wavelet coherence significance "
+              f"({P} alpha-pairs: {int(have.sum())} cached, "
+              f"{Pd} distinct nulls)")
+
+    n, sj, outsidecoi, outsidecoi_any, maxscale = _surrogate_grid(
+        dt, dj, s0, J, mother)
+    nfft = config.fft_length(n)
+    # A chunk holds pair_block·mc_batch members: the block shrinks below 64
+    # where the bytes model says the members do not fit.
+    members_fit = _mc_auto_batch(mc_count * 64, J + 1, nfft, n)
+    if pair_block is not None:
+        Pblk = max(1, min(int(pair_block), Pd))
+    else:
+        Pblk = max(1, min(Pd, 64, members_fit))
+    if mc_batch is None:
+        mc_batch = max(1, members_fit // Pblk)
+    mc_batch = min(int(mc_batch), mc_count)
+    nchunks = -(-mc_count // mc_batch)
+    # One burn-in for the block, sized for the largest |g| and rounded up to
+    # a power of two (>= 8), as pycwt_tpu buckets it.
+    tau = _burn_in(float(np.max(np.abs(np.concatenate([rep_a1, rep_a2])))))
+    if tau > 0:
+        tau = 1 << max(3, (tau - 1).bit_length())
+
+    dtype = config.real_dtype
+    npad = (-Pd) % Pblk
+    a1p = np.concatenate([rep_a1, np.repeat(rep_a1[-1], npad)])
+    a2p = np.concatenate([rep_a2, np.repeat(rep_a2[-1], npad)])
+    slots_p = np.concatenate([rep_slot, np.repeat(rep_slot[-1], npad)])
+    key = PRNGKey(seed, device=device)
+    sj_t = torch.as_tensor(sj, dtype=dtype, device=device)
+    oc_t = torch.as_tensor(outsidecoi, device=device)
+    blocks = []
+    for b0 in range(0, Pd + npad, Pblk):
+        blk = slice(b0, b0 + Pblk)
+        blocks.append(_mc_histogram_run_pairs(
+            key, sj_t, oc_t, torch.as_tensor(slots_p[blk], device=device),
+            torch.as_tensor(a1p[blk], dtype=dtype, device=device),
+            torch.as_tensor(a2p[blk], dtype=dtype, device=device), mc_count,
+            dt, mother=mother, nfft=nfft, dj=dj, batch=mc_batch,
+            nchunks=nchunks, n=n, tau=tau, engine=config.engine))
+        if progress and len(blocks) > 1:
+            print(f"  null blocks: {min(len(blocks) * Pblk, Pd)}/{Pd}",
+                  end="\r")
+    wlc = torch.cat(blocks).cpu().numpy().astype(np.float64)[:Pd]
+    if progress:
+        print(f"  MC surrogates per distinct null: {mc_count}")
+
+    sig_d = np.empty((Pd, J + 1))
+    for d in range(Pd):
+        sig_d[d] = mc_significance_from_histogram(
+            wlc[d], maxscale, significance_level, outsidecoi_any)
+    for p in range(P):
+        if not have[p]:
+            sig[p] = sig_d[owner[p]]
+
+    if cache:
+        # One write per entry name: pairs whose names fold together (every
+        # alpha > 0.25) share one file, which takes the last such pair's
+        # curve, as the per-pair writes of pycwt_tpu leave it.
+        last = {paths[p]: p for p in range(P) if not have[p]}
+        for path, p in last.items():
+            _sig_cache_write(path, sig[p], config, device)
+    return sig

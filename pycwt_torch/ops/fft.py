@@ -11,10 +11,12 @@ A non-pow-2 length under a non-``"xla"`` engine goes to ``torch.fft`` with
 the JAX package's fallback warning.
 
 Resolution order for ``engine=None``: the ``PYCWT_TPU_ENGINE`` environment
-variable, then a per-device default: ``"planar"`` for CUDA tensors (the
-choice the JAX package made on the platform its numbers came from) and
-``"xla"`` on the CPU.  Callers holding a :class:`~pycwt_torch.config.CWTConfig`
-pass ``config.engine`` as the explicit argument first.
+variable, then a default by device and compute dtype: ``"planar"`` for f32
+on CUDA (the choice the JAX package made on the platform its numbers came
+from; the kernels are f32) and ``"xla"`` otherwise, so f64 on the card runs
+cuFFT in native f64.  Callers holding a
+:class:`~pycwt_torch.config.CWTConfig` pass ``config.engine`` as the
+explicit argument first and its ``real_dtype`` as the dtype.
 """
 from __future__ import annotations
 
@@ -25,25 +27,43 @@ import torch
 
 from . import mxu_dft
 
-__all__ = ["resolve_engine", "fft", "ifft", "fft_of_real_full"]
+__all__ = ["resolve_engine", "warn_planar_downcast", "fft", "ifft",
+           "fft_of_real_full"]
 
 _VALID = ("xla", "mxu", "pallas", "planar")
 
 
-def _device_default(device) -> str:
-    if device is not None and torch.device(device).type == "cuda":
+def _device_default(device, dtype) -> str:
+    if dtype is None:
+        dtype = torch.get_default_dtype()
+    if (device is not None and torch.device(device).type == "cuda"
+            and dtype == torch.float32):
         return "planar"
     return "xla"
 
 
-def resolve_engine(engine: str | None = None, device=None) -> str:
+def resolve_engine(engine: str | None = None, device=None, dtype=None) -> str:
     """Resolve an engine name: explicit argument → ``PYCWT_TPU_ENGINE`` →
-    per-device default (CUDA → "planar", else "xla")."""
+    default by device and real compute dtype (f32 on CUDA → "planar", else
+    "xla"; ``dtype=None`` means ``torch.get_default_dtype()``)."""
     if engine is None:
-        engine = os.environ.get("PYCWT_TPU_ENGINE") or _device_default(device)
+        engine = (os.environ.get("PYCWT_TPU_ENGINE")
+                  or _device_default(device, dtype))
     if engine not in _VALID:
         raise ValueError(f"engine must be one of {_VALID}, got {engine!r}")
     return engine
+
+
+def warn_planar_downcast(dtype) -> None:
+    """The planar route is f32: say so, at the caller's caller, when an f64
+    computation is sent there (the JAX package's warning), never downcast
+    silently."""
+    if dtype == torch.float64:
+        warnings.warn(
+            "engine='planar' computes in float32; float64 inputs are "
+            "downcast. Use engine='xla' (or 'mxu') for f64 parity runs.",
+            stacklevel=3,
+        )
 
 
 def _warn_fallback(engine: str, n: int) -> None:
@@ -58,7 +78,7 @@ def _warn_fallback(engine: str, n: int) -> None:
 
 
 def _check_engine(x: torch.Tensor, n: int, engine: str | None) -> None:
-    engine = resolve_engine(engine, x.device)
+    engine = resolve_engine(engine, x.device, x.real.dtype)
     if engine != "xla" and not mxu_dft.supported_n(n):
         _warn_fallback(engine, n)
 

@@ -504,7 +504,8 @@ class _FusedDirect(_FusedCWT):
 
 
 def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
-                     dt: float, power_only: bool = False,
+                     dt: float, Ablk: int = 256, Cblk: int = 256,
+                     power_only: bool = False, interpret: bool = False,
                      precision: str = "highest",
                      small_kernel: bool | None = None,
                      output: str | None = None):
@@ -515,7 +516,11 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
     ``"planes"`` (default) returns ``(wr, wi)`` each ``(..., S, nfft)``;
     ``"power"`` returns |W|² ``(..., S, nfft)``; ``"power_sum"`` returns
     Σ_t |W|² ``(..., S)`` (the legacy ``power_only=True``).  All three
-    ``precision`` tiers currently run the same f32 kernels.
+    ``precision`` tiers currently run the same f32 kernels.  ``Ablk``,
+    ``Cblk`` (the Pallas kernels' block sizes) and ``interpret`` (Pallas's
+    interpret mode) are accepted for calls written against ``pycwt_tpu`` and
+    ignored: the CUDA kernels size their own blocks, and a CPU tensor runs
+    the plain version.
 
     ``small_kernel=True`` (or, when it is None, ``PYCWT_TPU_SMALL_KERNEL=1``)
     runs the one-launch kernel ``cwt_direct`` for nfft ≤ 2^12 and is ignored
@@ -563,11 +568,13 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
 
 
 def fused_cwt(signal_ft, scales, *, mother: Mother, nfft: int, dt: float,
-              power_only: bool = False, precision: str = "highest",
+              Ablk: int = 256, Cblk: int = 256, power_only: bool = False,
+              interpret: bool = False, precision: str = "highest",
               small_kernel: bool | None = None):
     """Complex-input convenience wrapper over :func:`fused_cwt_planar`:
     returns complex W ``(..., S, nfft)`` (un-trimmed), or Σ_t |W|² when
-    ``power_only``."""
+    ``power_only``.  ``Ablk``, ``Cblk`` and ``interpret`` are accepted and
+    ignored, as there."""
     out = fused_cwt_planar(signal_ft.real.to(torch.float32),
                            signal_ft.imag.to(torch.float32), scales,
                            mother=mother, nfft=nfft, dt=dt,

@@ -9,14 +9,19 @@ Counterpart of ``pycwt_tpu/stats.py`` with the same names and contracts:
 * :func:`rednoise_batch` / :func:`rednoise` — AR(1) surrogates drawn from an
   explicit ``torch.Generator`` (a ``jax.random`` key gives other bits, so the
   two packages agree in distribution, not bit for bit), with the g = 0 fix;
+* :func:`rednoise_members` / :func:`rednoise_members_pairs` — the
+  Monte-Carlo members, keyed by global member index, drawn from JAX's own
+  streams: threefry2x32 in int64 tensor ops (:func:`_threefry2x32`) keyed
+  as ``jax.random`` keys them (:func:`PRNGKey`, :func:`fold_in`,
+  :func:`split`), and f64 normals as ``jax.random.normal`` makes them
+  (:func:`_normal_f64`).  The same seed gives ``pycwt_tpu``'s f64
+  surrogates, on the CPU and on the card alike;
 * :func:`significance` — TC98 eqs. 16/18/23/25-28 with the f64 host PPF
   (``ops/special.py``), keeping deviations 3 and 4 of ``docs/parity.md``.
-
-The Monte-Carlo member generators (``rednoise_members*``) belong to the
-Monte-Carlo significance surface and are not here.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
@@ -26,7 +31,7 @@ from .mothers import as_mother
 from .utils.helpers import find
 
 __all__ = ["ar1", "ar1_batch", "ar1_spectrum", "rednoise", "rednoise_batch",
-           "significance"]
+           "rednoise_members", "rednoise_members_pairs", "significance"]
 
 
 def ar1(x):
@@ -110,8 +115,10 @@ def _ar1_recurrence(innovations: torch.Tensor, g) -> torch.Tensor:
     scalar or a tensor broadcastable to ``innovations`` (per-row
     coefficients)."""
     b = innovations
-    a = torch.broadcast_to(torch.as_tensor(g, dtype=b.dtype, device=b.device),
-                           b.shape)
+    if isinstance(g, torch.Tensor):
+        a = torch.broadcast_to(g.to(device=b.device, dtype=b.dtype), b.shape)
+    else:   # a fill on the device, not a host-to-device copy of the scalar
+        a = torch.full_like(b, float(g))
     n = b.shape[-1]
     d = 1
     while d < n:
@@ -137,9 +144,123 @@ def rednoise_batch(generator: torch.Generator, shape_n: int, g, a: float = 1.0,
     kw = dict(generator=generator, dtype=dtype, device=generator.device)
     if g == 0.0:
         return a * torch.randn((batch, shape_n), **kw)
-    tau = int(np.ceil(-2 / np.log(np.abs(g))))
+    tau = _burn_in(g)
     z = a * torch.randn((batch, shape_n + tau), **kw)
     return _ar1_recurrence(z, g)[:, tau:]
+
+
+# --------------------------------------------------------------------------
+# JAX's counter-based streams
+# --------------------------------------------------------------------------
+#
+# A key is a pair (k0, k1) of int64 tensors holding 32-bit words; every word
+# is kept in [0, 2^32) by masking, so no step relies on unsigned arithmetic.
+
+_MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+#: nextafter(−1, +∞): the low end of jax.random.normal's uniform draw
+_NORMAL_LO = float(np.nextafter(-1.0, np.inf))
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011), the block cipher of
+    ``jax.random``'s default generator: key words ``(k0, k1)`` encrypt the
+    counter words ``(x0, x1)``; all are int64 tensors (broadcast together)
+    of 32-bit words, and so is the returned pair."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _MASK32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None):
+    """``jax.random.PRNGKey(seed)``: the words ``(seed >> 32, seed)`` of the
+    64-bit seed, as 0-d int64 tensors on ``device``."""
+    seed = int(seed)
+    return (torch.tensor((seed >> 32) & _MASK32, dtype=torch.int64, device=device),
+            torch.tensor(seed & _MASK32, dtype=torch.int64, device=device))
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in``: the key threefry2x32(key, (0, data)), for an
+    int64 tensor (or int) ``data`` of any shape — one key per element."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=key[0].device)
+    return _threefry2x32(key[0], key[1], torch.zeros_like(data), data & _MASK32)
+
+
+def split(key, num: int = 2):
+    """``jax.random.split``: key j is threefry2x32(key, (0, j)); returns a
+    list of ``num`` keys."""
+    k0, k1 = fold_in(key, torch.arange(num, device=key[0].device))
+    return [(k0[j], k1[j]) for j in range(num)]
+
+
+def _normal_f64(key, length: int) -> torch.Tensor:
+    """``jax.random.normal(k, (length,), float64)`` for every key ``k`` of a
+    batch of keys (words of shape ``K``): returns ``K + (length,)`` f64.
+
+    Element i takes the 64 bits ``hi << 32 | lo`` of threefry2x32(k, (0, i));
+    their top 52 bits, ``((hi << 20) | (lo >> 12))``, scaled by 2^-52 give u
+    in [0, 1), mapped onto [nextafter(−1, ∞), 1) and clamped at the low end;
+    the normal is √2·erfinv(u)."""
+    k0, k1 = key[0][..., None], key[1][..., None]
+    count = torch.arange(length, dtype=torch.int64, device=k0.device)
+    hi, lo = _threefry2x32(k0, k1, torch.zeros_like(count), count)
+    mantissa = ((hi << 20) | (lo >> 12)) & ((1 << 52) - 1)
+    u = mantissa.to(torch.float64) * 2.0 ** -52
+    u = torch.clamp_min(u * (1.0 - _NORMAL_LO) + _NORMAL_LO, _NORMAL_LO)
+    return math.sqrt(2.0) * torch.erfinv(u)
+
+
+def _burn_in(g: float) -> int:
+    """tau = ceil(−2/log|g|): twice the decorrelation time (0 for g = 0)."""
+    return 0 if g == 0.0 else int(np.ceil(-2 / np.log(np.abs(g))))
+
+
+def rednoise_members(base_key, member_idx, shape_n: int, g, a: float = 1.0,
+                     dtype=torch.float32):
+    """Batch of AR(1) surrogates where member ``i``'s stream is
+    ``fold_in(base_key, member_idx[i])``: it depends only on the member's
+    global ensemble index, never on how the ensemble is chunked.  Normals
+    are drawn in f64 and cast to ``dtype``, so the integer words, and the
+    f64 draws, are the same on the CPU and the card.
+
+    Returns ``(len(member_idx), shape_n)`` on the key's device.
+    """
+    g = float(g)
+    tau = _burn_in(g)
+    z = a * _normal_f64(fold_in(base_key, member_idx), shape_n + tau).to(dtype)
+    if g == 0.0:
+        return z
+    return _ar1_recurrence(z, g)[:, tau:]
+
+
+def rednoise_members_pairs(base_key, pair_slots, member_idx, shape_n: int,
+                           g, tau: int, dtype=torch.float32):
+    """AR(1) surrogates for many coefficients at once: member ``(p, m)``'s
+    stream is ``fold_in(fold_in(base_key, pair_slots[p]), member_idx[m])``,
+    fixed by (seed, global pair slot, global member index) however the
+    members are chunked or the pairs blocked.  ``g`` is a ``(P,)`` tensor;
+    the caller sizes the burn-in ``tau`` for the largest |g| (a longer
+    burn-in only discards more samples).
+
+    Returns ``(P, len(member_idx), shape_n)``.
+    """
+    dev = base_key[0].device
+    slots = torch.as_tensor(pair_slots, dtype=torch.int64, device=dev)
+    idx = torch.as_tensor(member_idx, dtype=torch.int64, device=dev)
+    p0, p1 = fold_in(base_key, slots)
+    keys = _threefry2x32(p0[:, None], p1[:, None], torch.zeros_like(idx),
+                         idx & _MASK32)                           # (P, M) keys
+    z = _normal_f64(keys, shape_n + tau).to(dtype)
+    g = torch.as_tensor(g, dtype=dtype, device=dev)
+    return _ar1_recurrence(z, g[:, None, None])[..., tau:]
 
 
 def rednoise(N: int, g: float, a: float = 1.0, seed: int | None = None,

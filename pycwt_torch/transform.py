@@ -6,8 +6,8 @@ Counterpart of ``pycwt_tpu/transform.py``:
                  ──filter bank──► (B, S, nfft) product spectrum
                  ──batched iFFT─► (B, S, nfft) ──trim──► (B, S, n0) W
 
-On a CUDA tensor under engine ``"pallas"``/``"planar"`` (the CUDA default)
-the filter bank and the iFFT run as the fused CUDA kernels
+On a CUDA tensor under engine ``"pallas"``/``"planar"`` (the CUDA default
+for f32; f64 resolves to ``"xla"``, cuFFT in f64) the filter bank and the iFFT run as the fused CUDA kernels
 (``ops/fused_cwt.py``).  Scale grids, NaN-row drops and the COI are host
 numpy float64, decided before any device work.
 """
@@ -121,12 +121,12 @@ def cwt_batch(
     """
     signals = torch.as_tensor(signals)
     device = signals.device
-    engine = resolve_engine(engine if engine is not None else config.engine,
-                            device)
-    if engine == "planar":
-        engine = "pallas"
     rdt = config.real_dtype
     cdt = config.complex_dtype
+    engine = resolve_engine(engine if engine is not None else config.engine,
+                            device, rdt)
+    if engine == "planar":
+        engine = "pallas"
     signals = signals.to(rdt)
     if signals.ndim != 2:
         raise ValueError(f"signals must be (B, n0), got {tuple(signals.shape)}")

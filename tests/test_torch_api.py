@@ -1,0 +1,187 @@
+"""The port's public surface against pycwt_tpu's: every public function both
+packages define has the same parameters (names, kinds, defaults) but for an
+explicit allow-list; the engine default by device and dtype; the ops
+keywords the port accepts for calls written against pycwt_tpu."""
+import importlib
+import inspect
+import pkgutil
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import pycwt_torch
+import pycwt_torch as pt
+from pycwt_torch.config import CWTConfig
+from pycwt_torch.ops import fft as tfft
+from pycwt_torch.ops import fused_cwt as fc
+from pycwt_torch.ops import mxu_dft
+
+torch.set_num_threads(2)
+
+#: port module -> pycwt_tpu module, where the names differ
+MODULE_OF = {"pycwt_torch.ops.fused_cwt": "pycwt_tpu.ops.pallas_fft"}
+#: (module, function) -> parameters only the port has (besides ``device``)
+PORT_ONLY = {("pycwt_torch.ops.fft", "resolve_engine"): {"dtype"}}
+#: (module, function) -> pycwt_tpu parameters the port dropped: the
+#: smoothing precision (its planar smoothing has one f32/f64 product)
+JAX_ONLY = {("pycwt_torch.ops.smoothing", "smooth_planar_pair"): {"precision"},
+            ("pycwt_torch.ops.smoothing", "smooth_planar_real"): {"precision"}}
+#: (module, function) -> {port name: pycwt_tpu name}: rednoise_batch draws
+#: from a torch.Generator where pycwt_tpu takes a jax.random key
+RENAMED = {("pycwt_torch.stats", "rednoise_batch"): {"generator": "key"}}
+
+
+def _default(value):
+    """A default in comparable form: dtypes by name (torch.float32 and
+    jnp.float32 are both "float32"), jax.lax.Precision by its lower-case
+    name (the port takes the tier as a string)."""
+    if isinstance(value, torch.dtype):
+        return str(value).rsplit(".", 1)[-1]
+    if isinstance(value, type) and value.__module__.startswith("jax"):
+        return value.__name__
+    if type(value).__name__ == "Precision":
+        return repr(value.name.lower())
+    return repr(value)
+
+
+def _params(fn, drop=(), rename=None):
+    rename = rename or {}
+    return [(rename.get(p.name, p.name), p.kind, _default(p.default))
+            for p in inspect.signature(fn).parameters.values() if p.name not in drop]
+
+
+def _shared_functions():
+    """(port module, name, port function, pycwt_tpu function) of every
+    public function a port module defines that its pycwt_tpu module has."""
+    out = []
+    for info in pkgutil.walk_packages(pycwt_torch.__path__, "pycwt_torch."):
+        tname = info.name
+        jname = MODULE_OF.get(tname, tname.replace("pycwt_torch", "pycwt_tpu", 1))
+        try:
+            jmod = importlib.import_module(jname)
+        except ImportError:
+            continue                       # a port-only module (ops._build)
+        tmod = importlib.import_module(tname)
+        for name, fn in vars(tmod).items():
+            if (name.startswith("_") or not inspect.isfunction(fn)
+                    or fn.__module__ != tname or not hasattr(jmod, name)):
+                continue
+            out.append((tname, name, fn, getattr(jmod, name)))
+    return out
+
+
+def test_public_signatures_match_pycwt_tpu():
+    shared = _shared_functions()
+    names = {(m, n) for m, n, _, _ in shared}
+    # the surface this slice ported is among them
+    for fn in ("wct_significance", "wct_significance_batch", "wct",
+               "mc_significance_from_histogram"):
+        assert ("pycwt_torch.coherence", fn) in names
+    for fn in ("rednoise_members", "rednoise_members_pairs"):
+        assert ("pycwt_torch.stats", fn) in names
+    used = set()
+    mismatches = []
+    for mod, name, tfn, jfn in shared:
+        key = (mod, name)
+        drop = {"device"} | PORT_ONLY.get(key, set())
+        got = _params(tfn, drop=drop, rename=RENAMED.get(key))
+        want = _params(jfn, drop=JAX_ONLY.get(key, set()))
+        if got != want:
+            mismatches.append(f"{mod}.{name}: {got} != {want}")
+        for table in (PORT_ONLY, JAX_ONLY, RENAMED):
+            if key in table:
+                used.add(key)
+    assert not mismatches, "\n".join(mismatches)
+    # every allow-list entry still names a real difference
+    assert used == set(PORT_ONLY) | set(JAX_ONLY) | set(RENAMED)
+
+
+@pytest.mark.parametrize("device, dtype, engine", [
+    ("cuda", torch.float32, "planar"),
+    (torch.device("cuda", 0), torch.float32, "planar"),
+    ("cuda", torch.float64, "xla"),
+    ("cpu", torch.float32, "xla"),
+    ("cpu", torch.float64, "xla"),
+    (None, torch.float32, "xla"),
+])
+def test_resolve_engine_by_device_and_dtype(monkeypatch, device, dtype, engine):
+    """engine=None: planar only for f32 on CUDA; f64 on the card is cuFFT."""
+    monkeypatch.delenv("PYCWT_TPU_ENGINE", raising=False)
+    assert tfft.resolve_engine(None, device, dtype) == engine
+    assert tfft.resolve_engine("mxu", device, dtype) == "mxu"
+
+
+def test_resolve_engine_dtype_none_follows_default_dtype(monkeypatch):
+    monkeypatch.delenv("PYCWT_TPU_ENGINE", raising=False)
+    prev = torch.get_default_dtype()
+    try:
+        torch.set_default_dtype(torch.float64)
+        assert tfft.resolve_engine(None, "cuda") == "xla"
+        torch.set_default_dtype(torch.float32)
+        assert tfft.resolve_engine(None, "cuda") == "planar"
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def test_f64_policy_names_the_cache_as_xla_on_the_card():
+    """The MC cache policy resolves with the dtype too: an f64 config on the
+    card is the reference's xla-f64 regime."""
+    from pycwt_torch.coherence import _resolved_policy
+
+    f64 = CWTConfig(dtype=torch.float64)
+    assert _resolved_policy(f64, "cuda") == ("xla", "float64", 1)
+    assert _resolved_policy(CWTConfig(dtype=torch.float32), "cuda") == (
+        "planar", "float32", 1)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "fast"])
+def test_mxu_dft_accepts_precision(precision):
+    x = torch.tensor(np.random.default_rng(0).standard_normal((2, 64)))
+    ref = torch.fft.fft(x, dim=-1)
+    torch.testing.assert_close(mxu_dft.dft(x, precision=precision), ref)
+    torch.testing.assert_close(mxu_dft.idft(ref, precision=precision).real, x)
+    torch.testing.assert_close(mxu_dft.fft_of_real(x, 64, precision=precision), ref)
+    re, im = mxu_dft.fft_of_real_planar(x, 64, precision=precision)
+    torch.testing.assert_close(torch.complex(re, im), ref)
+
+
+def test_mxu_dft_rejects_unknown_precision():
+    x = torch.zeros(8)
+    for call in (lambda: mxu_dft.dft(x, precision="bf16"),
+                 lambda: mxu_dft.idft(x, precision="HIGHEST"),
+                 lambda: mxu_dft.fft_of_real(x, 8, precision=None),
+                 lambda: mxu_dft.fft_of_real_planar(x, 8, precision="x")):
+        with pytest.raises(ValueError, match="precision"):
+            call()
+
+
+def test_fused_cwt_accepts_and_ignores_block_keywords():
+    """Ablk, Cblk and interpret (the Pallas kernels' knobs) change nothing."""
+    x = torch.tensor(np.random.default_rng(1).standard_normal((2, 256)),
+                     dtype=torch.float32)
+    sr, si = mxu_dft.fft_of_real_planar(x, 256)
+    sc = torch.tensor([2.0, 4.0, 8.0])
+    kw = dict(mother=pt.Morlet(6), nfft=256, dt=1.0)
+    ref = fc.fused_cwt_planar(sr, si, sc, **kw)
+    got = fc.fused_cwt_planar(sr, si, sc, Ablk=64, Cblk=128, interpret=True, **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    W = fc.fused_cwt(torch.complex(sr, si), sc, Ablk=64, Cblk=32, interpret=False, **kw)
+    assert torch.equal(W, torch.complex(*ref))
+
+
+def test_cwt_power_warns_on_f64_sent_to_planar():
+    """The planar route is f32: an f64 config sent there explicitly warns,
+    as pycwt_tpu's _wct_core does; with the default engine f64 resolves to
+    xla and nothing warns."""
+    y = np.random.default_rng(2).standard_normal(256)
+    with pytest.warns(UserWarning, match="float32"):
+        pt.cwt_power(y, 1.0, config=CWTConfig(engine="planar", dtype=torch.float64),
+                     device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        power, *_ = pt.cwt_power(y, 1.0, config=CWTConfig(dtype=torch.float64),
+                                 device="cpu")
+    assert power.dtype == np.float64

@@ -68,6 +68,26 @@ def test_smooth_matches_jax_other_mothers(mother):
     assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("kind", ["real", "complex", "conj"])
+def test_scale_boxcar_matches_convolve2d(kind):
+    """The band product (on the real view of a complex field) is scipy's
+    'same' convolution along the scale axis, for a conjugate view too."""
+    from scipy.signal import convolve2d
+
+    rng = np.random.default_rng(4)
+    T = torch.tensor(rng.standard_normal((2, 12, 30)))
+    if kind != "real":
+        T = torch.complex(T, torch.tensor(rng.standard_normal((2, 12, 30))))
+    if kind == "conj":
+        T = T.conj()
+    win = tsm.rect_window(5)
+    got = tsm.scale_boxcar_same(T, win)
+    dense = T.resolve_conj().numpy()
+    ref = np.stack([convolve2d(t, win[:, None], "same") for t in dense])
+    assert got.dtype == T.dtype
+    assert np.abs(got.numpy() - ref).max() < 1e-14
+
+
 def test_smooth_planar_pair_matches_single_planes():
     """Two real planes in one complex FFT pair equal two single-plane calls
     at f32 round-off: 1e-5 of max (tests/test_coherence.py:114-133)."""
@@ -193,6 +213,9 @@ def test_wct_works_for_other_mothers(f64, mother):
 
 
 def test_wct_nan_row_drop_and_sig_raises(f64):
+    """The NaN-row drop, and sig=True (the default) on the same call: the
+    Monte-Carlo curve has J + 1 entries, one per scale of the undropped
+    grid, as pycwt_tpu's (the name is kept from when sig=True raised)."""
     rng = np.random.default_rng(61)
     y1 = rng.standard_normal(300)
     y2 = rng.standard_normal(300)
@@ -204,10 +227,12 @@ def test_wct_nan_row_drop_and_sig_raises(f64):
     ref, *_ = wt.wct(y1, y2, 0.25, sig=False, **kw)
     assert WCT.shape == ref.shape and WCT.shape[0] == len(sj) < 61
     np.testing.assert_allclose(freq, freq_cwt)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.wct(y1, y2, 0.25, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tan.wct_analysis(y1, y2, 0.25, device="cpu")
+    mc = dict(mc_count=3, seed=1, cache=False, progress=False)
+    *_, sig = pt.wct(y1, y2, 0.25, device="cpu", **kw, **mc)
+    assert sig.shape == (61,) and np.isfinite(sig[:5]).all()
+    res = tan.wct_analysis(y1, y2, 0.25, dj=1 / 8, mother="paul", s0=0.5, J=60,
+                           significance_level=0.95, device="cpu", **mc)
+    np.testing.assert_array_equal(res["sig95"], sig)
 
 
 def test_entry_points_need_a_card_or_cpu():
@@ -220,7 +245,11 @@ def test_entry_points_need_a_card_or_cpu():
                  lambda: tan.xwt_analysis(y, y, 1.0),
                  lambda: tan.wct_analysis(y, y, 1.0, sig=False),
                  lambda: tan.global_spectrum(y, 1.0),
-                 lambda: pt.rednoise(10, 0.5)):
+                 lambda: pt.rednoise(10, 0.5),
+                 lambda: pt.wct_significance(0.3, 0.4, 1.0, 0.25, 2.0, 7,
+                                             mc_count=2, cache=False),
+                 lambda: pt.wct_significance_batch([0.3], [0.4], 1.0, 0.25, 2.0, 7,
+                                                   mc_count=2, cache=False)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
 
