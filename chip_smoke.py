@@ -17,7 +17,15 @@ just after:
 * the Monte-Carlo significance (``wct_significance`` on both routes,
   ``wct_significance_batch``, ``wct_analysis(sig=True)``) on the golden
   JAO/JBaltic null at 300 members, against the golden's bands, bit for bit
-  across ``mc_batch`` and ``pair_block``, timed, with its peak memory.
+  across ``mc_batch`` and ``pair_block``, timed, with its peak memory;
+* the all-pairs path on a 32-station AR(1) network (``wct_matrix`` on both
+  kernel routes, ``wct_pairs``, ``xwt_pairs``, ``xwt_pairs_planar``, and
+  ``wct_matrix_analysis`` with 300-member nulls, cold and warm) against the
+  CPU f64 port, with peak bytes a pair against the blocking model;
+* the overlap-save long-signal surfaces (``ops/overlap.py``) at N = 2^22
+  against the global transform and timed at N = 2^24, 64 scales, chunk
+  2^18, with their launches and peak memory;
+* DOG(6) at scales where f^6 overflows f32, through K1+K2 and K3.
 
 K1 and K2 are checked at every column radix plan from 16 to 2048 points
 (nfft 2^8 to 2^22), and lightly at 4096 and 8192 (2^24, 2^26).  It times K1
@@ -27,7 +35,9 @@ K1's and K2's device time, and ``cwt_direct``, the K1+K2 pair and the
 ``torch.fft.ifft`` yardstick at the K3 sizes by device time (CUDA-event
 times of one call stand beside them as ``wall_ms``).  It prints one JSON
 line of kernel numbers and, last, one JSON ``ok`` line.  ``--trace`` profiles
-the 4,000-point WCT and a 300-member Monte-Carlo run on both routes instead;
+the 4,000-point WCT and a 300-member Monte-Carlo run on both routes, the
+32-station ``wct_matrix`` and ``wct_matrix_analysis`` and two overlap-save
+surfaces at N = 2^24 instead;
 ``--ab PARENT`` times the 4,000-point WCT and its smoothing for an unpacked
 parent tree and this one in turns.  Any failure raises:
 the exit code is then non-zero and no ``ok`` line is printed.  Without a
@@ -87,21 +97,23 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def _events_ms(fn):
+    """(CUDA-event ms of one call of ``fn()``, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
 def time_ms(fn, runs=11, warmup=2):
     """Median of ``runs`` CUDA-event timings of ``fn()`` after a warm-up."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return float(np.median([_events_ms(fn)[0] for _ in range(runs)]))
 
 
 def _device_rows(prof, calls, required=True):
@@ -1105,6 +1117,52 @@ def phase_mc_trace():
             log(f"  {ms:.4f} ms  x{cnt:g}  {key[:90]}")
 
 
+def phase_pairs_long_trace():
+    """``--trace``: torch.profiler over one call each of the 32-station
+    wct_matrix (unfetched) and wct_matrix_analysis (300-member nulls, no
+    cache), and of cwt_overlap_save_planar and wct_overlap_planar at N =
+    2^24 (after a warm-up call): the device's busy time, its share of the
+    wall time under the profiler, the largest device items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import pycwt_torch as pt
+    from pycwt_torch.analysis import wct_matrix_analysis
+    from pycwt_torch.ops import overlap as tov
+
+    y = _stations()
+    sc = torch.tensor(2.0 * 2.0 ** (np.arange(LONG_S) / 8.0), dtype=torch.float32,
+                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(LONG_TIME_N, generator=gen, device="cuda")
+    x2 = 0.5 * x + torch.randn(LONG_TIME_N, generator=gen, device="cuda")
+    kw = dict(mother=pt.Morlet(6), chunk=LONG_CHUNK)
+    calls = {
+        "wct_matrix, 32 stations, unfetched":
+            lambda: pt.wct_matrix(y, PAIRS_DT, as_numpy=False),
+        "wct_matrix_analysis, 32 stations, 300 members, no cache":
+            lambda: wct_matrix_analysis(y, dt=PAIRS_DT, mc_count=PAIRS_MC, cache=False),
+        "cwt_overlap_save_planar, N = 2^24":
+            lambda: tov.cwt_overlap_save_planar(x, sc, 1.0, **kw),
+        "wct_overlap_planar, N = 2^24":
+            lambda: tov.wct_overlap_planar(x, x2, sc, 1.0, dj=LONG_DJ, **kw),
+    }
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = _device_rows(prof, 1)
+        busy = sum(r[0] for r in rows)
+        log(f"trace, {name}: {wall:.4f} ms wall under the profiler, device busy "
+            f"{busy:.4f} ms ({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} %, "
+            f"{sum(r[1] for r in rows):g} kernel launches")
+        for ms, cnt, key in rows[:10]:
+            log(f"  {ms:.4f} ms  x{cnt:g}  {key[:90]}")
+
+
 def phase_direct_gradient():
     """Gradients through cwt_direct's autograd Function equal the plain
     version's at nfft = 2^12 within 1e-4 (tests/test_autodiff.py:91-111)."""
@@ -1131,6 +1189,438 @@ def phase_direct_gradient():
     log(f"gradient through cwt_direct vs plain: x {ex:.3e}, scales {es:.3e} (bound 1e-4)")
 
 
+#: The composed 32-station network (tools/tpu_bench_composed.py:62-73): AR(1)
+#: stations, g ~ U(0.4, 0.8), 256 burn-in samples, dt = 0.25 → S = 110
+#: scales, nfft 1024, 496 pairs; Monte-Carlo nulls of 300 members at nfft 8192
+PAIRS_B, PAIRS_N0, PAIRS_DT, PAIRS_MC = 32, 1024, 0.25, 300
+#: members of the one null recomputed in f64 on the CPU (its cost grows with
+#: the count; a count's f32/f64 bin crossings move the curve by ~1e-3/count)
+NULL_CHECK_MC = 100
+#: tools/tpu_bench_long.py:19-46: Morlet-6, 64 scales, s0 = 2·dt, dj = 1/8
+#: (s_max ≈ 469·dt), dt = 1, the default chunk 2^18 (chunk nfft 2^19)
+LONG_S, LONG_DJ, LONG_CHUNK = 64, 1 / 8, 1 << 18
+#: N of the checks against the global transform, and of the timed runs
+LONG_CHECK_N, LONG_TIME_N = 1 << 22, 1 << 24
+
+
+def _stations():
+    rng = np.random.default_rng(7)
+    g_true = rng.uniform(0.4, 0.8, PAIRS_B)
+    y = np.empty((PAIRS_B, PAIRS_N0))
+    for b in range(PAIRS_B):
+        e = rng.standard_normal(PAIRS_N0 + 256)
+        for t in range(1, len(e)):
+            e[t] += g_true[b] * e[t - 1]
+        y[b] = e[256:]
+    return y
+
+
+def _peak_bytes(fn):
+    """(bytes allocated at the peak of ``fn()`` above those allocated
+    before, its result)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
+def _bytes_a_pair(call, big, small):
+    """Peak bytes a pair of ``call(pair_block)``: the peaks at blocks of
+    ``big`` and ``small`` pairs apart, over the pairs between (the output,
+    the same at both, cancels)."""
+    p_big, _ = _peak_bytes(lambda: call(big))
+    p_small, _ = _peak_bytes(lambda: call(small))
+    return (p_big - p_small) / (big - small)
+
+
+def _vs_plain(sr, si, sc, small, **kw):
+    """Max error of the route's kernels against their plain version on the
+    same planar spectra, relative to max|W| (the `highest` bound)."""
+    from pycwt_torch.ops import fused_cwt as fc
+
+    wr, wi = fc.fused_cwt_planar(sr, si, sc, small_kernel=small, **kw)
+    plain = fc._direct_reference if small else fc._fused_cwt_planar_reference
+    rr, ri = plain(sr, si, sc, **kw)
+    err = max(float((wr - rr).abs().max()), float((wi - ri).abs().max()))
+    err /= float(torch.sqrt(rr * rr + ri * ri).max())
+    check(math.isfinite(err) and err < TIER_BOUND["highest"],
+          f"{'cwt_direct' if small else 'K1+K2'} vs plain at {tuple(sr.shape)}, "
+          f"nfft {kw['nfft']}: {err}")
+    return err
+
+
+def phase_pairs(card):
+    """The all-pairs path on the 32-station network: wct_matrix on both
+    kernel routes (launches counted) against the CPU f64 port on 16 pairs;
+    rows against wct(sig=False), and station 0's 31 pairs through wct_pairs,
+    xwt_pairs and xwt_pairs_planar; blocking; as_numpy=False; peak bytes a
+    pair against _pairs_block's planes and the resident set against its
+    guard; the kernels at the path's shapes against their plain versions;
+    wct_matrix_analysis(mc_count=300) cold and warm on a fresh cache, and
+    one of its nulls recomputed in f64 on the CPU."""
+    import shutil
+    import tempfile
+
+    import pycwt_torch as pt
+    from pycwt_torch import coherence as tco
+    from pycwt_torch.analysis import wct_matrix_analysis
+    from pycwt_torch.config import CWTConfig
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+    from pycwt_torch.transform import build_scale_grid
+
+    y = _stations()
+    B, n0, dt = PAIRS_B, PAIRS_N0, PAIRS_DT
+    P = B * (B - 1) // 2
+    f64 = CWTConfig(dtype=torch.float64)
+    out = dict(routes={})
+    maps = {}
+    for small in (False, True):
+        name = "cwt_direct" if small else "default"
+        with _route(small):
+            _reset_counts()
+            W, A, coi, freq, pairs = pt.wct_matrix(y, dt)
+            torch.cuda.synchronize()
+            launches = dict(fc.KERNEL_LAUNCHES)
+            ms = time_ms(lambda: pt.wct_matrix(y, dt), runs=5, warmup=1)
+            ms_device = time_ms(lambda: pt.wct_matrix(y, dt, as_numpy=False), runs=5,
+                                warmup=1)
+        S = W.shape[1]
+        check(W.shape == A.shape == (P, S, n0) and S == 110 and np.isfinite(W).all()
+              and np.isfinite(A).all(), f"wct_matrix {name}: {W.shape}")
+        want = ("cwt_direct",) if small else ("cwt_stage_a", "cwt_stage_b")
+        check(all(launches[k] == 1 for k in want) and sum(launches.values()) == len(want),
+              f"wct_matrix {name}: launches {launches}")
+        maps[name] = (W, A)
+        out["routes"][name] = dict(launches=launches, ms=ms, ms_unfetched=ms_device)
+    nfft = 1 << (n0 - 1).bit_length()
+    # the two f32 routes, all 496 maps, at the planar bound of
+    # tests/test_coherence.py:309 (5e-5 of max R², which is ~1)
+    routes_agree = float(np.abs(maps["cwt_direct"][0] - maps["default"][0]).max())
+    check(routes_agree <= 5e-5, f"wct_matrix routes disagree: {routes_agree}")
+    W, A = maps["default"]
+
+    # 16 pairs against the CPU f64 port (rel_err bound tests/test_engines.py:170)
+    sel = np.linspace(0, P - 1, 16).astype(int)
+    Wc, *_ = pt.wct_matrix(y, dt, pairs=pairs[sel], device="cpu", config=f64)
+    out["vs_cpu_f64"] = {k: rel_err(m[0][sel], Wc) for k, m in maps.items()}
+    check(all(e < WCT_BOUND for e in out["vs_cpu_f64"].values()),
+          f"wct_matrix vs CPU f64: {out['vs_cpu_f64']}")
+
+    # rows against the card's wct(sig=False), and station 0's 31 pairs
+    rows_err = 0.0
+    for p in (0, 1, P // 2, P - 1):
+        i, j = pairs[p]
+        Wij, *_ = pt.wct(y[i], y[j], dt, sig=False)
+        rows_err = max(rows_err, float(np.abs(W[p] - Wij).max()))
+    y1, y2 = np.repeat(y[:1], B - 1, 0), y[1:]
+    _reset_counts()
+    Wp, Ap, *_ = pt.wct_pairs(y1, y2, dt)
+    X, _, _, sig = pt.xwt_pairs(y1, y2, dt)
+    mag, phase, *_ = pt.xwt_pairs_planar(y1, y2, dt)
+    torch.cuda.synchronize()
+    pair_launches = dict(fc.KERNEL_LAUNCHES)
+    check(_four_step_only(pair_launches), f"pair surfaces launches {pair_launches}")
+    Xc, _, _, sigc = pt.xwt_pairs(y1, y2, dt, device="cpu", config=f64)
+    errs = dict(
+        rows_vs_wct=rows_err,
+        wct_pairs=float(np.abs(Wp - W[:B - 1]).max()),
+        xwt_pairs_vs_cpu_f64=float(np.abs(np.abs(X) - np.abs(Xc)).max() / np.abs(Xc).max()),
+        xwt_pairs_planar=float(np.abs(mag - np.abs(X)).max() / np.abs(X).max()))
+    check(errs["rows_vs_wct"] <= 5e-5 and errs["wct_pairs"] <= 5e-5
+          and errs["xwt_pairs_vs_cpu_f64"] <= 2e-5 and errs["xwt_pairs_planar"] <= 2e-5
+          and np.allclose(sig, sigc, rtol=1e-10, atol=0), f"pair surfaces: {errs}")
+    out["pair_errs"] = errs
+
+    # blocking: the auto block (all 496) against blocks of 7, a ragged tail
+    W7, A7, *_ = pt.wct_matrix(y, dt, pair_block=7)
+    out["block_identical"] = bool(np.array_equal(W7, W) and np.array_equal(A7, A))
+    out["block_diff"] = max(float(np.abs(W7 - W).max()),
+                            float(np.abs(np.angle(np.exp(1j * (A7 - A)))).max()))
+    check(out["block_diff"] <= 1e-6, f"pair_block 7 vs auto: {out['block_diff']}")
+    Wd, Ad, *_ = pt.wct_matrix(y, dt, as_numpy=False)
+    check(Wd.is_cuda and Ad.is_cuda and torch.equal(Wd.cpu(), torch.from_numpy(W))
+          and torch.equal(Ad.cpu(), torch.from_numpy(A)), "as_numpy=False")
+    del Wd, Ad, W7, A7
+
+    # memory: peak bytes a pair against _pairs_block's planes, resident set
+    plane = S * nfft * 4
+    measured = {
+        "xwt_pairs": _bytes_a_pair(lambda b: pt.xwt_pairs(y1, y2, dt, pair_block=b), 30, 15),
+        "xwt_pairs_planar": _bytes_a_pair(
+            lambda b: pt.xwt_pairs_planar(y1, y2, dt, pair_block=b), 30, 15),
+        "wct_pairs": _bytes_a_pair(lambda b: pt.wct_pairs(y1, y2, dt, pair_block=b), 30, 15),
+        "wct_matrix": _bytes_a_pair(lambda b: pt.wct_matrix(y, dt, pair_block=b), P, P // 2)}
+    model = dict(xwt_pairs=24, xwt_pairs_planar=24, wct_pairs=112, wct_matrix=48)
+    out["planes_a_pair"] = {k: v / plane for k, v in measured.items()}
+    peak_one, _ = _peak_bytes(lambda: pt.wct_matrix(y, dt, pair_block=1))
+    out["resident"] = peak_one - 2 * P * S * n0 * 4 - measured["wct_matrix"]
+    out["resident_model"] = 6 * B * S * nfft * 4
+    log(f"[{card}] pairs memory: planes a pair measured "
+        + ", ".join(f"{k} {v:.2f} (model {model[k]})" for k, v in out["planes_a_pair"].items())
+        + f"; wct_matrix resident set {out['resident']:.4e} bytes (guard's model "
+        f"{out['resident_model']:.4e})")
+    check(all(out["planes_a_pair"][k] <= model[k] for k in model),
+          f"peak bytes a pair over _pairs_block's planes: {out['planes_a_pair']}")
+    check(out["resident"] <= out["resident_model"], "resident set over the guard's model")
+
+    # the kernels at the path's shapes (32 rows, S = 110, nfft 1024)
+    yn = torch.tensor((y - y.mean(-1, keepdims=True)) / y.std(-1, keepdims=True),
+                      dtype=torch.float32, device="cuda")
+    sc = torch.tensor(build_scale_grid(n0, dt).sj, dtype=torch.float32, device="cuda")
+    sr, si = fft_of_real_planar(yn, nfft)
+    kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=dt)
+    out["kernel_err"] = {"K1+K2": _vs_plain(sr, si, sc, False, **kw),
+                         "cwt_direct": _vs_plain(sr, si, sc, True, **kw)}
+
+    # the analysis call, cold and warm, on a fresh cache directory
+    cache_dir = tempfile.mkdtemp(prefix="pycwt_pairs_cache_")
+    old_cache = os.environ.get("PYCWT_TPU_CACHE_DIR")
+    os.environ["PYCWT_TPU_CACHE_DIR"] = cache_dir
+    try:
+        runs = {}
+        for kind in ("cold", "warm"):
+            _reset_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms, res = _events_ms(lambda: wct_matrix_analysis(y, dt=dt, mc_count=PAIRS_MC))
+            runs[kind] = dict(ms=ms, launches=dict(fc.KERNEL_LAUNCHES), res=res,
+                              peak=torch.cuda.max_memory_allocated() - base)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        if old_cache is None:
+            os.environ.pop("PYCWT_TPU_CACHE_DIR", None)
+        else:
+            os.environ["PYCWT_TPU_CACHE_DIR"] = old_cache
+    res = runs["cold"]["res"]
+    sig95 = res["sig95"]
+    g = res["alpha"]
+    keys = {tco._canonical_null_key(g[i], g[j], tco._auto_alpha_quant(PAIRS_MC))
+            for i, j in res["pairs"]}
+    out["distinct_nulls"] = len(keys)
+    check(sig95.shape == (P, S) and np.array_equal(res["WCT"], W),
+          f"wct_matrix_analysis: sig95 {sig95.shape}")
+    # pairs whose AR(1) coefficients exceed 0.25 share one cache entry (the
+    # reference's file name): every warm curve is one of the cold run's
+    cold_rows = {np.nan_to_num(r, nan=-1.0).tobytes() for r in sig95}
+    check(all(np.nan_to_num(r, nan=-1.0).tobytes() in cold_rows
+              for r in runs["warm"]["res"]["sig95"]),
+          "a warm (cached) curve is none of the cold run's")
+    out["cache_entries"] = len({tco._sig_cache_name(g[i], g[j], 1 / 12, 2 * dt / pt.Morlet(
+        6).flambda(), dt, S - 1, pt.Morlet(6), PAIRS_MC, 0, CWTConfig(), "cuda")
+        for i, j in res["pairs"]})
+    finite = sig95[np.isfinite(sig95)]
+    check(finite.size and 0 <= finite.min() and finite.max() < 1, "sig95 outside [0, 1)")
+    check(_four_step_only(runs["cold"]["launches"])
+          and runs["warm"]["launches"]["cwt_stage_a"] == 1,
+          f"wct_matrix_analysis launches: cold {runs['cold']['launches']}, warm "
+          f"{runs['warm']['launches']}")
+    n, _, _, _, _ = tco._surrogate_grid(dt, 1 / 12, 2 * dt / pt.Morlet(6).flambda(), S - 1,
+                                        pt.Morlet(6))
+    nfft_mc = 1 << (n - 1).bit_length()
+    fit = tco._mc_auto_batch(PAIRS_MC * 64, S, nfft_mc, n)
+    rows = min(len(keys), 64, fit) * (fit // min(len(keys), 64, fit))
+    out["mc"] = dict(n=n, nfft=nfft_mc, rows_a_chunk=rows)
+    # K1+K2 at the null chunk's shape (one signal's rows, nfft 8192)
+    z = torch.randn((rows, n), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    zr, zi = fft_of_real_planar(z, nfft_mc)
+    out["kernel_err"]["K1+K2 null chunk"] = _vs_plain(zr, zi, sc, False, mother=pt.Morlet(6),
+                                                      nfft=nfft_mc, dt=dt)
+    del z, zr, zi
+
+    # one null in f64 on the CPU from the same members, and on the card
+    i, j = res["pairs"][0]
+    null_kw = dict(dt=dt, dj=1 / 12, s0=2 * dt / pt.Morlet(6).flambda(), J=S - 1,
+                   mc_count=NULL_CHECK_MC, seed=0, cache=False, progress=False)
+    on_card = tco.wct_significance_batch([g[i]], [g[j]], **null_kw)[0]
+    on_cpu = tco.wct_significance_batch([g[i]], [g[j]], device="cpu", config=f64,
+                                        **null_kw)[0]
+    ok = np.isfinite(on_cpu)
+    out["null_vs_cpu_f64"] = float(np.abs(on_card[ok] - on_cpu[ok]).max())
+    check(np.array_equal(ok, np.isfinite(on_card)) and out["null_vs_cpu_f64"] <= 1e-5,
+          f"null ({g[i]:.4f}, {g[j]:.4f}) card vs CPU f64: {out['null_vs_cpu_f64']}")
+    for kind, r in runs.items():
+        out[f"analysis_{kind}"] = dict(ms=r["ms"], launches=r["launches"], peak=r["peak"])
+    per_null = runs["cold"]["launches"]["cwt_stage_a"] - 1
+    log(f"[{card}] 32-station wct_matrix (496 pairs, S {S}, nfft {nfft}): default "
+        f"{out['routes']['default']['ms']:.4f} ms ({out['routes']['default']['ms_unfetched']:.4f} "
+        f"unfetched), cwt_direct {out['routes']['cwt_direct']['ms']:.4f} ms "
+        f"({out['routes']['cwt_direct']['ms_unfetched']:.4f} unfetched), CUDA events median of 5; "
+        f"launches {out['routes']['default']['launches']} / "
+        f"{out['routes']['cwt_direct']['launches']}; routes agree (max |dR2|) "
+        f"{routes_agree:.3e}; vs CPU "
+        f"f64 on 16 pairs {out['vs_cpu_f64']}; {errs}; pair_block 7 vs auto bit-identical "
+        f"{out['block_identical']} (max diff {out['block_diff']:.3e}); kernels vs plain "
+        f"{out['kernel_err']}")
+    log(f"[{card}] wct_matrix_analysis(mc_count=300): cold {runs['cold']['ms']:.1f} ms, warm "
+        f"{runs['warm']['ms']:.1f} ms (CUDA events); {out['distinct_nulls']} distinct nulls "
+        f"(n {n}, nfft {nfft_mc}, {rows} rows a chunk; {out['cache_entries']} cache entries "
+        f"for the {P} pairs); launches cold "
+        f"{runs['cold']['launches']} ({per_null} K1 launches for the nulls), warm "
+        f"{runs['warm']['launches']}; peak {runs['cold']['peak']:.4e} / "
+        f"{runs['warm']['peak']:.4e} bytes; one null ({NULL_CHECK_MC} members) card vs CPU "
+        f"f64 {out['null_vs_cpu_f64']:.3e}")
+    return out
+
+
+def phase_dog_repair(card):
+    """DOG(6) with scales up to 2·nfft, where f^6 overflows f32: K1+K2 at
+    nfft 2^20 and cwt_direct at its largest nfft (2^12) give finite planes
+    that match the f64 plain version at the `high` bound."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+
+    errs = {}
+    for nfft, small in ((1 << 20, False), (1 << 12, True)):
+        x = torch.tensor(np.random.default_rng(5).standard_normal(nfft),
+                         dtype=torch.float32, device="cuda")
+        sr, si = fft_of_real_planar(x[None], nfft)
+        sc = torch.tensor([2.0, float(nfft) ** 0.5, 2.0 * nfft], device="cuda")
+        kw = dict(mother=pt.DOG(6), nfft=nfft, dt=1.0)
+        _reset_counts()
+        wr, wi = fc.fused_cwt_planar(sr, si, sc, small_kernel=small, **kw)
+        name = "cwt_direct" if small else "cwt_stage_a"
+        check(fc.KERNEL_LAUNCHES[name] == 1, f"DOG repair: {fc.KERNEL_LAUNCHES}")
+        rr, ri = fc._fused_cwt_planar_reference(sr.double(), si.double(), sc.double(), **kw)
+        err = max(float((wr.double() - rr).abs().max()), float((wi.double() - ri).abs().max()))
+        err /= float(torch.sqrt(rr * rr + ri * ri).max())
+        check(bool(torch.isfinite(wr).all() and torch.isfinite(wi).all())
+              and err <= TIER_BOUND["high"], f"DOG(6) at nfft {nfft} ({name}): {err}")
+        errs[name] = err
+    log(f"[{card}] DOG(6), scales to 2*nfft: finite; vs the f64 plain version (of max|W|) "
+        f"K1+K2 at 2^20 {errs['cwt_stage_a']:.3e}, cwt_direct at 2^12 {errs['cwt_direct']:.3e}")
+    return errs
+
+
+def phase_long(card):
+    """The overlap-save surfaces on tools/tpu_bench_long.py's grid: at N =
+    2^22 each against the global transform on the card (interior, s ≥ 4dt)
+    or against each other; at N = 2^24 each timed (CUDA events, median of
+    3) with its launches and peak memory; K1+K2 at the chunk's shape
+    against their plain version."""
+    import pycwt_torch as pt
+    from pycwt_torch.coherence import _wct_core_planar
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops import overlap as tov
+    from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+
+    mother = pt.Morlet(6)
+    sj = 2.0 * 2.0 ** (np.arange(LONG_S) / 8.0)
+    sc = torch.tensor(sj, dtype=torch.float32, device="cuda")
+    H = tov.halo_samples(float(sj.max()), 1.0)
+    nfft_c = 1 << (LONG_CHUNK + 4 * H - 1).bit_length()
+    coarse = torch.tensor(sj >= 4.0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = dict(halo=H, chunk_nfft=nfft_c)
+
+    def normalized(v):
+        return (v - v.mean()) / v.std(correction=0)
+
+    # the chunk's transform against the plain version
+    x = torch.randn(LONG_CHUNK + 2 * H, generator=gen, device="cuda")
+    xr, xi = fft_of_real_planar(x, nfft_c)
+    out["kernel_err"] = _vs_plain(xr, xi, sc, False, mother=mother, nfft=nfft_c, dt=1.0)
+
+    N = LONG_CHECK_N
+    x = torch.randn(N, generator=gen, device="cuda")
+    x2 = 0.5 * x + torch.randn(N, generator=gen, device="cuda")
+    sl = slice(H, N - H)
+    kw = dict(mother=mother, chunk=LONG_CHUNK)
+    wr, wi = tov.cwt_overlap_save_planar(x, sc, 1.0, **kw)
+    gr, gi = fc._planar_cwt_of_real(x, sc, mother=mother, nfft=N, dt=1.0)
+    per_scale = (torch.maximum((wr - gr)[:, sl].abs(), (wi - gi)[:, sl].abs()).amax(-1)
+                 / torch.sqrt(gr * gr + gi * gi)[:, sl].amax(-1))
+    del gr, gi
+    errs = dict(cwt_planar_s_ge_4dt=float(per_scale[coarse].max()),
+                cwt_planar_finest=[float(e) for e in per_scale[:3]])
+    W = tov.cwt_overlap_save(x, sc, 1.0, **kw)
+    errs["complex_vs_planar"] = float((W - torch.complex(wr, wi)).abs().max() / W.abs().max())
+    del W
+    pw = tov.streamed_global_power_planar(x, sc, 1.0, **kw)
+    ref = (wr * wr + wi * wi).sum(-1)
+    errs["streamed_power"] = float(((pw - ref).abs() / ref).max())
+    del wr, wi
+    n1, n2 = normalized(x), normalized(x2)
+    R, A = tov.wct_overlap_planar(x, x2, sc, 1.0, dj=LONG_DJ, **kw)
+    Rg, Ag, (g12r, g12i) = _wct_core_planar(n1[None], n2[None], sc, 1.0, mother=mother,
+                                            nfft=N, dj=LONG_DJ)
+    s2 = slice(2 * H, N - 2 * H)
+    Rg, Ag = Rg[0][coarse][:, s2], Ag[0][coarse][:, s2]
+    g12 = torch.sqrt(g12r[0] ** 2 + g12i[0] ** 2)[coarse][:, s2]
+    del g12r, g12i
+    per_scale = (R[coarse][:, s2] - Rg).abs().amax(-1)
+    errs["wct"] = float(per_scale.max())
+    # the scale boxcar couples the first scales above 4dt to the
+    # near-Nyquist ones below it
+    errs["wct_first_coarse_scales"] = [float(e) for e in per_scale[:4]]
+    dphi = (torch.remainder(A[coarse][:, s2] - Ag + math.pi, 2 * math.pi) - math.pi).abs()
+    # the phase is that of the unsmoothed cross spectrum: where |W12| is
+    # near zero it is noise in any formulation, R² > 0.2 or not
+    errs["wct_phase_R2_gt_0.2"] = float(dphi[Rg > 0.2].max())
+    errs["wct_phase"] = float(dphi[(Rg > 0.2) & (g12 > 1e-3 * g12.max())].max())
+    del R, A, Rg, Ag, dphi, g12
+    M, _ = tov.xwt_overlap_planar(x, x2, sc, 1.0, **kw)
+    w1 = torch.complex(*fc._planar_cwt_of_real(n1, sc, mother=mother, nfft=N, dt=1.0))
+    w2 = torch.complex(*fc._planar_cwt_of_real(n2, sc, mother=mother, nfft=N, dt=1.0))
+    ref = (w1 * w2.conj()).abs()[coarse][:, sl]
+    del w1, w2
+    errs["xwt"] = float((M[coarse][:, sl] - ref).abs().max() / ref.max())
+    del M, ref
+    out["errs_2p22"] = errs
+    log(f"[{card}] overlap-save at N = 2^22 (64 scales, halo {H}, chunk 2^18, chunk nfft "
+        f"{nfft_c}): {errs}")
+    check(errs["cwt_planar_s_ge_4dt"] <= TIER_BOUND["high"]
+          and errs["complex_vs_planar"] <= 2e-5 and errs["streamed_power"] <= 3e-5
+          and errs["wct"] <= 2e-4 and errs["wct_phase"] <= 2e-3 and errs["xwt"] <= 3e-5,
+          f"overlap-save at 2^22: {errs}")
+    del x, x2, n1, n2
+
+    N = LONG_TIME_N
+    x = torch.randn(N, generator=gen, device="cuda")
+    x2 = 0.5 * x + torch.randn(N, generator=gen, device="cuda")
+    n_chunks = N // LONG_CHUNK
+    kw = dict(mother=mother, chunk=LONG_CHUNK)
+    surfaces = {
+        "cwt_overlap_save_planar": (1, lambda: tov.cwt_overlap_save_planar(x, sc, 1.0, **kw)),
+        "cwt_overlap_save": (1, lambda: tov.cwt_overlap_save(x, sc, 1.0, **kw)),
+        "streamed_global_power_planar": (
+            1, lambda: tov.streamed_global_power_planar(x, sc, 1.0, **kw)),
+        "wct_overlap_planar": (
+            2, lambda: tov.wct_overlap_planar(x, x2, sc, 1.0, dj=LONG_DJ, **kw)),
+        "xwt_overlap_planar": (2, lambda: tov.xwt_overlap_planar(x, x2, sc, 1.0, **kw)),
+    }
+    out["surfaces"] = {}
+    for name, (signals, fn) in surfaces.items():
+        _reset_counts()
+        peak, res = _peak_bytes(fn)
+        launches = dict(fc.KERNEL_LAUNCHES)
+        outs = res if isinstance(res, tuple) else (res,)
+        out_bytes = sum(t.untyped_storage().nbytes() for t in outs)
+        check(all(bool(torch.isfinite(t).all()) for t in outs), f"{name} at 2^24: not finite")
+        del res, outs
+        check(launches["cwt_stage_a"] == launches["cwt_stage_b"] == signals * n_chunks
+              and launches["cwt_direct"] == 0, f"{name} at 2^24: launches {launches}")
+        times = []
+        for _ in range(3):
+            ms, res = _events_ms(fn)
+            times.append(ms)
+            del res
+        ms = float(np.median(times))
+        out["surfaces"][name] = dict(ms=ms, ms_runs=times, rate=N * LONG_S / (ms * 1e-3),
+                                     launches=launches["cwt_stage_a"], peak=peak,
+                                     output_bytes=out_bytes)
+        log(f"[{card}] {name} at N = 2^24, 64 scales: {ms:.2f} ms (CUDA events, median of "
+            f"3: {[round(t, 2) for t in times]}), {N * LONG_S / (ms * 1e-3):.4e} sample-scales/s, "
+            f"K1/K2 launches {launches['cwt_stage_a']} each ({n_chunks} chunks), peak "
+            f"{peak:.4e} bytes = output {out_bytes:.4e} + {peak - out_bytes:.4e}")
+    return out
+
+
 def main():
     card = phase_device()
     t0 = time.perf_counter()
@@ -1148,6 +1638,9 @@ def main():
     plans = phase_column_plans()
     phase_direct_gradient()
     mc = phase_mc_significance()
+    pairs = phase_pairs(card)
+    dog = phase_dog_repair(card)
+    long = phase_long(card)
     common = dict(route="cuda", source=KERNEL_SOURCE, library_ms=bench["lib_ms"],
                   library_call="torch.fft.ifft of the filtered (64, 2^20) complex64 product",
                   max_rel_err_by_tier=worst, planes_err_vs_f64=four_step_vs_f64,
@@ -1183,8 +1676,25 @@ def main():
     ]
     mc_launches = {k: r["launches"] for k, r in mc["routes"].items()}
     for k in kernels:
+        name = k["name"]
         k["mc_launches_per_300_members"] = {
-            route: counts[k["name"]] for route, counts in mc_launches.items()}
+            route: counts[name] for route, counts in mc_launches.items()}
+        k["wct_matrix_launches"] = {route: r["launches"][name]
+                                    for route, r in pairs["routes"].items()}
+        k["wct_matrix_analysis_launches"] = {
+            kind: pairs[f"analysis_{kind}"]["launches"][name] for kind in ("cold", "warm")}
+        k["overlap_2p24_launches"] = {
+            srf: (r["launches"] if name != "cwt_direct" else 0)
+            for srf, r in long["surfaces"].items()}
+        k["new_shapes_err_vs_plain"] = (
+            {"wct_matrix (32, 110, 1024)": pairs["kernel_err"]["cwt_direct"]}
+            if name == "cwt_direct" else
+            {"wct_matrix (32, 110, 1024)": pairs["kernel_err"]["K1+K2"],
+             f"null chunk ({pairs['mc']['rows_a_chunk']}, 110, {pairs['mc']['nfft']})":
+                 pairs["kernel_err"]["K1+K2 null chunk"],
+             f"overlap chunk (1, 64, {long['chunk_nfft']})": long["kernel_err"]})
+        k["dog6_repair_err_vs_f64"] = dog["cwt_direct" if name == "cwt_direct"
+                                          else "cwt_stage_a"]
     log(json.dumps({"pipeline_ms": bench["ms_pipe"], "pipeline_device_ms": bench["dev_pipe"],
                     "plain_pipeline_ms": bench["plain_pipe"],
                     "sample_scales_per_s": bench["rate"],
@@ -1201,7 +1711,18 @@ def main():
                     "mc_auto_batch": mc["auto_batch"], "mc_generator_ms": mc["generator_ms"],
                     "mc_batch_8_nulls_ms": mc["batch_ms"],
                     "mc_vs_cpu_f64_max_abs": mc["vs_cpu_f64"],
-                    "seconds": time.perf_counter() - t0}))
+                    "wct_matrix_32_stations_ms": {
+                        k: r["ms"] for k, r in pairs["routes"].items()},
+                    "wct_matrix_32_stations_unfetched_ms": {
+                        k: r["ms_unfetched"] for k, r in pairs["routes"].items()},
+                    "wct_matrix_analysis_ms": {
+                        k: pairs[f"analysis_{k}"]["ms"] for k in ("cold", "warm")},
+                    "wct_matrix_analysis_peak_bytes": {
+                        k: pairs[f"analysis_{k}"]["peak"] for k in ("cold", "warm")},
+                    "distinct_nulls": pairs["distinct_nulls"],
+                    "pairs_planes_a_pair": pairs["planes_a_pair"],
+                    "overlap_2p24": long["surfaces"], "overlap_2p22_errs": long["errs_2p22"],
+                    "card": card, "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1214,6 +1735,7 @@ if __name__ == "__main__":
         phase_device()
         phase_wct_trace()
         phase_mc_trace()
+        phase_pairs_long_trace()
     elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         phase_device()
         phase_ab(sys.argv[2])

@@ -7,21 +7,27 @@ defaults and return contracts, with the hot loop of the forward transform
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
 Ported so far: the forward-CWT main path, the TC98 statistics, XWT, WCT and
-its Monte-Carlo significance (single pair and batched); the rest of
-``pycwt_tpu/__init__.py``'s exports are listed in ``ROADMAP.md``.
+its Monte-Carlo significance (single pair and batched), the many-pair
+surfaces (``xwt_pairs``, ``xwt_pairs_planar``, ``wct_pairs``,
+``wct_matrix``) and the single-device overlap-save long-signal transforms
+(:mod:`pycwt_torch.ops.overlap`); the rest of ``pycwt_tpu/__init__.py``'s
+exports are listed in ``ROADMAP.md``.
 """
 
 from . import mothers, sample  # noqa: F401
 from .api import cwt, cwt_power, icwt, significance  # noqa: F401
-from .coherence import (wct, wct_significance,  # noqa: F401
-                        wct_significance_batch, xwt, xwt_planar)
+from .coherence import (wct, wct_matrix, wct_pairs, wct_significance,  # noqa: F401
+                        wct_significance_batch, xwt,
+                        xwt_pairs, xwt_pairs_planar, xwt_planar)
 from .mothers import DOG, MexicanHat, Morlet, Paul  # noqa: F401
 from .stats import ar1, ar1_batch, ar1_spectrum, rednoise  # noqa: F401
 from .utils.helpers import boxpdf, find, get_cache_dir, rect  # noqa: F401
 
 __all__ = [
-    "cwt", "cwt_power", "icwt", "significance", "xwt", "xwt_planar", "wct",
-    "wct_significance", "wct_significance_batch",
+    "cwt", "cwt_power", "icwt", "significance", "xwt", "xwt_pairs",
+    "xwt_pairs_planar", "xwt_planar",
+    "wct", "wct_matrix", "wct_pairs", "wct_significance",
+    "wct_significance_batch",
     "mothers", "Morlet", "Paul", "DOG", "MexicanHat",
     "ar1", "ar1_batch", "ar1_spectrum", "rednoise", "find", "rect", "boxpdf",
     "get_cache_dir",

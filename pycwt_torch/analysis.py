@@ -1,7 +1,6 @@
 """High-level analysis pipelines — the application layer.
 
-Counterpart of ``pycwt_tpu/analysis.py`` (the Monte-Carlo
-``wct_matrix_analysis`` aside):
+Counterpart of ``pycwt_tpu/analysis.py``:
 
 * :func:`cwt_analysis` — the Torrence & Compo Figure-1 flow: normalize →
   CWT → power → pointwise significance → global wavelet spectrum (+
@@ -10,6 +9,8 @@ Counterpart of ``pycwt_tpu/analysis.py`` (the Monte-Carlo
 * :func:`xwt_analysis` / :func:`wct_analysis` — the ``sample_xwt.py`` flow,
   with the boxpdf preprocessing option and the Torrence & Webster
   phase-arrow helper;
+* :func:`wct_matrix_analysis` — all-pairs coherence of ``B`` signals with
+  each pair's Monte-Carlo null;
 * :func:`global_spectrum` — the global wavelet spectrum by Parseval.
 
 Each takes ``device=None``, meaning the card; on a CUDA device the
@@ -27,11 +28,11 @@ from . import api
 from .coherence import wct as _wct
 from .coherence import xwt as _xwt
 from .mothers import Mother, as_mother
-from .stats import ar1
+from .stats import ar1, ar1_batch
 from .utils.helpers import boxpdf
 
 __all__ = ["CWTAnalysis", "cwt_analysis", "global_spectrum", "xwt_analysis",
-           "wct_analysis", "phase_arrows"]
+           "wct_analysis", "wct_matrix_analysis", "phase_arrows"]
 
 
 def _planar(device, n0: int) -> bool:
@@ -249,6 +250,54 @@ def wct_analysis(y1, y2, dt, dj=1 / 12, s0=-1, J=-1,
         wavelet=mother, device=device, **kwargs)
     return dict(WCT=WCT, phase=aWCT, coi=coi, freq=freq, period=1 / freq,
                 sig95=sig95)
+
+
+def wct_matrix_analysis(y, dt, dj=1 / 12, s0=-1, J=-1, mother="morlet",
+                        significance_level=0.8646, sig: bool = True,
+                        pairs=None, mc_count=300, seed=0, cache=True,
+                        normalize=True, alpha_quant=None, as_numpy=True,
+                        device=None):
+    """All-pairs coherence analysis of ``B`` signals with per-pair
+    Monte-Carlo nulls: :func:`~pycwt_torch.coherence.wct_matrix` (each
+    signal's CWT and self-smoothing computed once) and
+    :func:`~pycwt_torch.coherence.wct_significance_batch` as one call.
+
+    AR(1) coefficients are fitted per signal (:func:`ar1_batch`), with the
+    white-noise fallback where a fit is degenerate and non-stationary fits
+    clipped to ±0.99; the nulls are deduplicated to distinct rounded
+    coefficient pairs and cached as ``wct_significance_batch`` does.
+
+    Returns a dict with ``WCT``/``phase`` ``(P, S, n0)`` (tensors on
+    ``device`` when ``as_numpy=False``), ``pairs`` ``(P, 2)``, ``sig95``
+    ``(P, S)`` (or 0 when ``sig=False``), ``alpha`` ``(B,)``, ``coi``,
+    ``freq``, ``period``.
+    """
+    from .coherence import wct_matrix, wct_significance_batch
+
+    device = api._resolve_device(device)
+    m = as_mother(mother)
+    y = np.asarray(y, np.float64)
+    B, n0 = y.shape
+    if s0 == -1:
+        s0 = 2 * dt / m.flambda()
+    if J == -1:
+        J = int(np.round(np.log2(n0 * dt / s0) / dj))
+    WCT, aWCT, coi, freq, pairs_out = wct_matrix(
+        y, dt, dj=dj, s0=s0, J=J, wavelet=m, pairs=pairs,
+        normalize=normalize, as_numpy=as_numpy, device=device)
+
+    g, _, _ = ar1_batch(y)
+    g = np.clip(np.where(np.isfinite(g), g, 0.0), -0.99, 0.99)
+    if sig:
+        sig95 = wct_significance_batch(
+            g[pairs_out[:, 0]], g[pairs_out[:, 1]], dt=dt, dj=dj, s0=s0,
+            J=J, significance_level=significance_level, wavelet=m,
+            mc_count=mc_count, seed=seed, cache=cache, progress=False,
+            alpha_quant=alpha_quant, device=device)
+    else:
+        sig95 = np.asarray([0])
+    return dict(WCT=WCT, phase=aWCT, pairs=pairs_out, sig95=sig95,
+                alpha=g, coi=coi, freq=freq, period=1 / freq)
 
 
 def phase_arrows(phase: np.ndarray):

@@ -1,12 +1,14 @@
 """Cross-wavelet transform (XWT), wavelet coherence (WCT) and its
 Monte-Carlo significance.
 
-Counterpart of the single-pair and Monte-Carlo surfaces of
-``pycwt_tpu/coherence.py``:
+Counterpart of the single-device surfaces of ``pycwt_tpu/coherence.py``:
 
 * :func:`xwt`, :func:`xwt_planar` — reference ``wavelet.py:316-419``;
 * :func:`wct` — reference ``wavelet.py:422-528``, for every mother with a
   tabulated ``deltaj0`` (the reference only defines smoothing on Morlet);
+* :func:`xwt_pairs`, :func:`xwt_pairs_planar`, :func:`wct_pairs` — the
+  same for ``B`` pairs, in blocks of pairs; :func:`wct_matrix` — coherence
+  of many pairs of ``B`` signals, each signal's transform computed once;
 * :func:`wct_significance` — reference ``wavelet.py:531-647``, and
   :func:`wct_significance_batch`, the same for many AR(1) nulls at once.
 
@@ -38,13 +40,14 @@ from .config import CWTConfig, DEFAULT
 from .mothers import Mother, as_mother
 from .ops.fft import resolve_engine, warn_planar_downcast
 from .ops.smoothing import smooth, smooth_planar_pair
-from .stats import (PRNGKey, _burn_in, ar1, ar1_spectrum, rednoise_members,
-                    rednoise_members_pairs, split)
+from .stats import (PRNGKey, _burn_in, ar1, ar1_batch, ar1_spectrum,
+                    rednoise_members, rednoise_members_pairs, split)
 from .transform import (build_scale_grid, coi_bartlett, cwt_batch,
                         drop_reference_nan_rows)
 from .utils.helpers import find, get_cache_dir
 
-__all__ = ["xwt", "xwt_planar", "wct", "wct_significance",
+__all__ = ["xwt", "xwt_pairs", "xwt_pairs_planar", "xwt_planar", "wct",
+           "wct_pairs", "wct_matrix", "wct_significance",
            "wct_significance_batch"]
 
 NBINS = 1000  # histogram resolution of the MC coherence CDF (wavelet.py:606)
@@ -132,6 +135,19 @@ def _chi2_ppf_host(p: float, df) -> float:
     return float(chi2_ppf_host(p, df))
 
 
+def _planar_w(y, scales, *, mother: Mother, nfft: int, dt: float,
+              precision: str = "highest"):
+    """Planar W ``(wr, wi)``, each ``(..., S, n)`` f32, of real rows ``y``
+    ``(..., n)``: ``_planar_cwt_of_real`` (the kernels on a CUDA tensor),
+    trimmed to the signal length."""
+    from .ops.fused_cwt import _planar_cwt_of_real
+
+    n = y.shape[-1]
+    wr, wi = _planar_cwt_of_real(y, scales, mother=mother, nfft=nfft, dt=dt,
+                                 precision=precision)
+    return wr[..., :n], wi[..., :n]
+
+
 def _wct_core_planar(y1n, y2n, scales, dt, *, mother: Mother, nfft: int,
                      dj: float):
     """:func:`_wct_core` on real planes in f32: planar forward DFT →
@@ -141,9 +157,7 @@ def _wct_core_planar(y1n, y2n, scales, dt, *, mother: Mother, nfft: int,
 
     Returns ``(WCT, aWCT, (W12r, W12i))``.
     """
-    from .ops.fused_cwt import (_fused_cwt_planar_reference, fused_cwt_planar,
-                                supported_nfft)
-    from .ops.mxu_dft import fft_of_real_planar, supported_n
+    from .ops.mxu_dft import supported_n
 
     if not supported_n(nfft):
         raise ValueError(
@@ -152,17 +166,8 @@ def _wct_core_planar(y1n, y2n, scales, dt, *, mother: Mother, nfft: int,
     y1n = torch.as_tensor(y1n).to(torch.float32)
     y2n = torch.as_tensor(y2n).to(device=y1n.device, dtype=torch.float32)
     scales = torch.as_tensor(scales).to(device=y1n.device, dtype=torch.float32)
-    n0 = y1n.shape[-1]
-    transform = (fused_cwt_planar if supported_nfft(nfft)
-                 else _fused_cwt_planar_reference)
-
-    def planar_w(y):
-        sr, si = fft_of_real_planar(y, nfft)
-        wr, wi = transform(sr, si, scales, mother=mother, nfft=nfft, dt=float(dt))
-        return wr[..., :n0], wi[..., :n0]
-
-    w1r, w1i = planar_w(y1n)
-    w2r, w2i = planar_w(y2n)
+    w1r, w1i = _planar_w(y1n, scales, mother=mother, nfft=nfft, dt=dt)
+    w2r, w2i = _planar_w(y2n, scales, mother=mother, nfft=nfft, dt=dt)
     s_col = scales[:, None]
     # Two plane-packed smoothing calls instead of four single-plane ones.
     S1, S2 = smooth_planar_pair((w1r ** 2 + w1i ** 2) / s_col,
@@ -258,6 +263,330 @@ def wct(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, sig=True, significance_level=0.95,
     else:
         sig_out = np.asarray([0])
     return _host(WCT[0]), _host(aWCT[0]), coi, freq, sig_out
+
+
+# --------------------------------------------------------------------------
+# Many pairs: xwt_pairs, xwt_pairs_planar, wct_pairs, wct_matrix
+# --------------------------------------------------------------------------
+
+def _pair_rows(y1, y2, name: str):
+    y1 = np.asarray(y1)
+    y2 = np.asarray(y2)
+    if y1.ndim != 2 or y1.shape != y2.shape:
+        raise ValueError(
+            f"{name} expects matching (B, n0) arrays, got {y1.shape} vs "
+            f"{y2.shape}")
+    return y1, y2
+
+
+def _rows_normalized(y: np.ndarray, normalize: bool) -> np.ndarray:
+    if normalize:
+        return (y - y.mean(-1, keepdims=True)) / y.std(-1, keepdims=True)
+    return y
+
+
+def _pairs_grid(n0: int, dt, dj, s0, J, mother: Mother, config: CWTConfig):
+    """``(sj, freqs, nfft)`` of a batched surface: the TC98 default grid and
+    the reference's NaN-row drop, as :func:`wct` has them."""
+    grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother)
+    nfft = config.fft_length(n0)
+    sj, freqs = drop_reference_nan_rows(mother, grid.sj, grid.freqs, nfft, dt)
+    return sj, freqs, nfft
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.finfo(dtype).bits // 8
+
+
+def _pairs_signif(y1, y2, freqs, dt, mother: Mother, significance_level,
+                  normalize: bool) -> np.ndarray:
+    """Per-pair theoretical XWT significance ``(B, S)``: the reference's
+    ``std1·std2·sqrt(Pk1·Pk2)·PPF/dof`` with the AR(1) coefficients of the
+    raw rows (:func:`ar1_batch`, NaN where :func:`ar1` would raise)."""
+    ones = np.ones(y1.shape[0])
+    std1, std2 = (ones, ones) if normalize else (y1.std(-1), y2.std(-1))
+    dof = mother.dofmin
+    PPF = _chi2_ppf_host(significance_level, dof)
+    a1, _, _ = ar1_batch(y1)
+    a2, _, _ = ar1_batch(y2)
+    Pk1 = ar1_spectrum(freqs[None, :] * dt, a1[:, None])     # (B, S)
+    Pk2 = ar1_spectrum(freqs[None, :] * dt, a2[:, None])
+    return std1[:, None] * std2[:, None] * (Pk1 * Pk2) ** 0.5 * PPF / dof
+
+
+def _pairs_block(B: int, S: int, nfft: int, itemsize: int,
+                 planes: int = 112, budget_bytes: float = 25e9) -> int:
+    """Largest block of pairs whose live intermediates fit ``budget_bytes``:
+    ``planes`` (S, nfft) planes of ``itemsize`` bytes a pair at the peak
+    (112 for :func:`wct_pairs`, 24 for the XWT pairs, 48 for
+    :func:`wct_matrix`'s cross smoothing, the JAX package's models).  The
+    budget is :func:`_mc_auto_batch`'s 25e9 bytes of the 80 GB H100, where
+    the JAX package budgets 2e9 of a 16 GB v5e.  ``chip_smoke.py`` measures
+    each caller's peak a pair beside its model: 8.0, 7.8, 9.7 and 10.0
+    planes (xwt_pairs, xwt_pairs_planar, wct_pairs, wct_matrix) at S = 110,
+    nfft 1024 on the H100.  At most ``B``, at least 1."""
+    per_pair = planes * S * nfft * itemsize
+    blk = int(budget_bytes // max(per_pair, 1))
+    return max(1, min(B, blk))
+
+
+def xwt_pairs(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, significance_level=0.95,
+              wavelet="morlet", normalize=True, config: CWTConfig = DEFAULT,
+              pair_block: int | None = None, device=None):
+    """Cross-wavelet transform of ``B`` signal pairs (the batched
+    :func:`xwt`; the reference computes one pair per call).
+
+    ``y1, y2``: ``(B, n0)``.  Returns ``(W12, coi, freq, signif)`` with
+    ``W12`` of shape ``(B, S, n0)`` (complex) and ``signif`` ``(B, S)``, the
+    per-pair theoretical AR(1) significance with the reference's semantics
+    (AR(1) fitted on the RAW rows; ``std1·std2·sqrt(Pk1·Pk2)·PPF/dof``).
+    The pairs run in blocks of ``pair_block`` (``None``: the largest that
+    :func:`_pairs_block`'s bytes model admits) written into one ``(B, S,
+    n0)`` output, so memory stays bounded; the last block may be shorter.
+    """
+    from .api import _host, _resolve_device
+
+    device = _resolve_device(device)
+    mother = as_mother(wavelet)
+    y1, y2 = _pair_rows(y1, y2, "xwt_pairs")
+    B, n0 = y1.shape
+    sj, freqs, nfft = _pairs_grid(n0, dt, dj, s0, J, mother, config)
+    rdt = config.real_dtype
+    blk = pair_block if pair_block is not None else _pairs_block(
+        B, len(sj), nfft, _itemsize(rdt), planes=24)
+    y1_n = _rows_normalized(y1, normalize)
+    y2_n = _rows_normalized(y2, normalize)
+    sj_t = torch.as_tensor(sj, dtype=rdt, device=device)
+    W12 = torch.empty((B, len(sj), n0), dtype=config.complex_dtype, device=device)
+    for b0 in range(0, B, blk):
+        W1, _ = cwt_batch(torch.as_tensor(y1_n[b0:b0 + blk], dtype=rdt, device=device),
+                          sj_t, dt, mother=mother, nfft=nfft, config=config)
+        W2, _ = cwt_batch(torch.as_tensor(y2_n[b0:b0 + blk], dtype=rdt, device=device),
+                          sj_t, dt, mother=mother, nfft=nfft, config=config)
+        W12[b0:b0 + blk] = W1 * W2.conj()
+    signif = _pairs_signif(y1, y2, freqs, dt, mother, significance_level, normalize)
+    return _host(W12), coi_bartlett(n0, dt, mother), freqs, signif
+
+
+def xwt_pairs_planar(y1, y2, dt, dj=1 / 12, s0=-1, J=-1,
+                     significance_level=0.95, wavelet="morlet",
+                     normalize=True, config: CWTConfig = DEFAULT,
+                     pair_block: int | None = None, device=None):
+    """:func:`xwt_pairs` on ``(re, im)`` f32 planes through
+    ``fused_cwt_planar`` (the kernels on the card): each block's planar
+    forward DFT, the planar CWTs, then ``|W12|`` and its ``atan2`` phase.
+
+    Returns ``(mag, phase, coi, freq, signif)`` with ``mag``/``phase`` of
+    shape ``(B, S, n0)`` and ``signif`` ``(B, S)`` as :func:`xwt_pairs`;
+    ``mag·e^{i·phase}`` equals its ``W12`` to f32 round-off.  Needs a
+    power-of-two FFT length.
+    """
+    from .api import _host, _resolve_device
+    from .ops.mxu_dft import supported_n
+
+    device = _resolve_device(device)
+    mother = as_mother(wavelet)
+    y1, y2 = _pair_rows(y1, y2, "xwt_pairs_planar")
+    B, n0 = y1.shape
+    nfft = config.fft_length(n0)
+    if not supported_n(nfft):
+        raise ValueError(
+            f"xwt_pairs_planar requires a power-of-two FFT length, got "
+            f"nfft={nfft} (pad_pow2={config.pad_pow2}). Use "
+            "CWTConfig(pad_pow2=True) or the complex-engine xwt_pairs().")
+    sj, freqs, _ = _pairs_grid(n0, dt, dj, s0, J, mother, config)
+    blk = pair_block if pair_block is not None else _pairs_block(
+        B, len(sj), nfft, 4, planes=24)
+    y1_n = _rows_normalized(y1, normalize)
+    y2_n = _rows_normalized(y2, normalize)
+    sj32 = torch.as_tensor(sj, dtype=torch.float32, device=device)
+    kw = dict(mother=mother, nfft=nfft, dt=dt, precision=config.precision)
+    mag = torch.empty((B, len(sj), n0), dtype=torch.float32, device=device)
+    phase = torch.empty_like(mag)
+    for b0 in range(0, B, blk):
+        w1r, w1i = _planar_w(torch.as_tensor(y1_n[b0:b0 + blk], dtype=torch.float32,
+                                             device=device), sj32, **kw)
+        w2r, w2i = _planar_w(torch.as_tensor(y2_n[b0:b0 + blk], dtype=torch.float32,
+                                             device=device), sj32, **kw)
+        w12r = w1r * w2r + w1i * w2i          # W1 · conj(W2), planar
+        w12i = w1i * w2r - w1r * w2i
+        mag[b0:b0 + blk] = torch.sqrt(w12r * w12r + w12i * w12i)
+        phase[b0:b0 + blk] = torch.atan2(w12i, w12r)
+    signif = _pairs_signif(y1, y2, freqs, dt, mother, significance_level, normalize)
+    return _host(mag), _host(phase), coi_bartlett(n0, dt, mother), freqs, signif
+
+
+def wct_pairs(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
+              normalize=True, config: CWTConfig = DEFAULT,
+              pair_block: int | None = None, device=None):
+    """Wavelet coherence of ``B`` signal pairs (the reference's ``wct`` is
+    one pair per call).
+
+    Parameters are as :func:`wct` with ``y1, y2`` of shape ``(B, n0)``, each
+    pair normalized on its own when ``normalize``.  Returns ``(WCT, aWCT,
+    coi, freq)`` with ``WCT``/``aWCT`` of shape ``(B, S, n0)``.  No
+    significance: each pair has its own AR(1) null
+    (:func:`wct_significance_batch`).  The pairs run through
+    :func:`_wct_core` (the planar kernels' route for f32 on the card) in
+    blocks of ``pair_block`` (``None``: :func:`_pairs_block`'s bytes
+    model); the results do not depend on the blocking.
+    """
+    from .api import _host, _resolve_device
+
+    device = _resolve_device(device)
+    mother = as_mother(wavelet)
+    y1, y2 = _pair_rows(y1, y2, "wct_pairs")
+    B, n0 = y1.shape
+    sj, freqs, nfft = _pairs_grid(n0, dt, dj, s0, J, mother, config)
+    rdt = config.real_dtype
+    blk = pair_block if pair_block is not None else _pairs_block(
+        B, len(sj), nfft, _itemsize(rdt))
+    y1_n = _rows_normalized(y1, normalize)
+    y2_n = _rows_normalized(y2, normalize)
+    sj_t = torch.as_tensor(sj, dtype=rdt, device=device)
+    WCT = aWCT = None
+    for b0 in range(0, B, blk):
+        R, A, _ = _wct_core(
+            torch.as_tensor(y1_n[b0:b0 + blk], dtype=rdt, device=device),
+            torch.as_tensor(y2_n[b0:b0 + blk], dtype=rdt, device=device),
+            sj_t, dt, mother=mother, nfft=nfft, dj=dj, engine=config.engine)
+        if WCT is None:     # the route sets the dtype: f32 on the planar one
+            WCT = R.new_empty((B,) + R.shape[1:])
+            aWCT = A.new_empty((B,) + A.shape[1:])
+        WCT[b0:b0 + blk] = R
+        aWCT[b0:b0 + blk] = A
+    return _host(WCT), _host(aWCT), coi_bartlett(n0, dt, mother), freqs
+
+
+def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
+               normalize=True, config: CWTConfig = DEFAULT, pairs=None,
+               pair_block: int | None = None, max_bytes: float = 12e9,
+               as_numpy: bool = True, device=None):
+    """Wavelet coherence of many pairs drawn from ``B`` signals, each
+    signal's CWT and self-smoothing computed once and shared by its pairs.
+
+    For ``pairs=None`` (every ``i < j`` pair, ``B·(B−1)/2`` of them) each
+    transform serves ``B−1`` pairs, so a pair costs one cross smoothing.
+    On the planar route (f32 on the card) the transforms run through
+    ``fused_cwt_planar`` and the smoothing on planes; each block of
+    ``pair_block`` pairs gathers its rows with ``index_select``, forms the
+    cross spectrum and runs one ``smooth_planar_pair``.  The complex route
+    (``cwt_batch`` + ``smooth``) serves f64 and the CPU.
+
+    **Memory bound:** the signals' transforms and self-smoothings stay
+    resident across the pair loop, about ``6·B·S·nfft·itemsize`` bytes at
+    the peak.  A request whose resident set exceeds ``max_bytes`` (default
+    12 GB) raises before any device allocation: split the station list with
+    ``pairs=``, or raise ``max_bytes`` (an 80 GB H100 holds several times
+    the default).  The multi-device ``sharded_wct_matrix`` is ROADMAP.md
+    queue 1 item 5.
+
+    Parameters
+    ----------
+    y: ``(B, n0)`` signals (each normalized on its own when ``normalize``).
+    pairs: ``(P, 2)`` integer array of (i, j) indices into ``y``, or ``None``
+        for all ``i < j`` pairs.
+    pair_block: pairs a block (``None``: :func:`_pairs_block`'s model).
+    max_bytes: resident-set budget for the shared ``(B, S, nfft)`` fields.
+    as_numpy: ``False`` returns the maps as tensors on ``device``,
+        unfetched (the 32-station maps are ~450 MB).
+
+    Returns ``(WCT, aWCT, coi, freq, pairs)`` with ``WCT``/``aWCT`` of shape
+    ``(P, S, n0)`` and ``pairs`` the ``(P, 2)`` index array used.
+    """
+    from .api import _host, _resolve_device
+    from .ops.smoothing import smooth_planar_real
+
+    device = _resolve_device(device)
+    mother = as_mother(wavelet)
+    y = np.asarray(y)
+    if y.ndim != 2:
+        raise ValueError(f"wct_matrix expects (B, n0), got {y.shape}")
+    B, n0 = y.shape
+    if pairs is None:
+        pairs = np.array([(i, j) for i in range(B) for j in range(i + 1, B)],
+                         dtype=np.int32)
+    else:
+        pairs = np.asarray(pairs, dtype=np.int32)
+        if pairs.ndim != 2 or pairs.shape[1] != 2:
+            raise ValueError(f"pairs must be (P, 2), got {pairs.shape}")
+        if pairs.size and (pairs.min() < 0 or pairs.max() >= B):
+            raise ValueError("pair indices out of range")
+    P = len(pairs)
+    if P == 0:
+        raise ValueError("no pairs to compute")
+
+    sj, freqs, nfft = _pairs_grid(n0, dt, dj, s0, J, mother, config)
+    rdt = config.real_dtype
+    S = len(sj)
+    # The shared per-signal fields (W planes, self-smoothing and the batched
+    # transients at the padded length, ~6 (B, S, nfft) planes at the peak)
+    # scale with B, not P: fail fast, on the host, with the alternatives.
+    resident = 6 * B * S * nfft * _itemsize(rdt)
+    if resident > max_bytes:
+        raise ValueError(
+            f"wct_matrix resident set ~{resident / 1e9:.1f} GB for B={B} "
+            f"signals x {S} scales x nfft={nfft} ({_dtype_name(rdt)})"
+            f" exceeds max_bytes={max_bytes / 1e9:.1f} GB. Split the station"
+            f" list into sub-blocks via pairs=, use "
+            f"parallel.sharded_wct_matrix over a mesh (ROADMAP.md queue 1 "
+            f"item 5 in pycwt_torch), or raise max_bytes if the device has "
+            f"more memory.")
+    blk = pair_block if pair_block is not None else _pairs_block(
+        P, S, nfft, _itemsize(rdt), planes=48)
+    blk = int(min(P, blk))
+    y_n = torch.as_tensor(_rows_normalized(y, normalize), dtype=rdt, device=device)
+    scales = torch.as_tensor(sj, dtype=rdt, device=device)
+    pi = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=device)
+    pj = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=device)
+
+    if resolve_engine(config.engine, device, rdt) == "planar":
+        from .ops.mxu_dft import supported_n
+
+        if not supported_n(nfft):
+            raise ValueError(f"planar WCT needs a power-of-two nfft, got {nfft}.")
+        warn_planar_downcast(rdt)
+        scales = scales.to(torch.float32)
+        s_col = scales[:, None]
+        wr, wi = _planar_w(y_n, scales, mother=mother, nfft=nfft, dt=dt,
+                           precision=config.precision)
+        Sself = smooth_planar_real((wr ** 2 + wi ** 2) / s_col, dt, dj,
+                                   scales, mother)
+
+        def pair_block_maps(ib, jb):
+            w1r, w1i = wr.index_select(0, ib), wi.index_select(0, ib)
+            w2r, w2i = wr.index_select(0, jb), wi.index_select(0, jb)
+            w12r = w1r * w2r + w1i * w2i
+            w12i = w1i * w2r - w1r * w2i
+            S12r, S12i = smooth_planar_pair(w12r / s_col, w12i / s_col,
+                                            dt, dj, scales, mother)
+            R2 = (S12r ** 2 + S12i ** 2) / (
+                Sself.index_select(0, ib) * Sself.index_select(0, jb))
+            return R2, torch.atan2(w12i, w12r)
+    else:
+        s_col = scales[:, None]
+        W, _ = cwt_batch(y_n, scales, dt, mother=mother, nfft=nfft, config=config)
+        Sself = smooth(W.abs() ** 2 / s_col, dt, dj, scales, mother,
+                       engine=config.engine)
+
+        def pair_block_maps(ib, jb):
+            W12 = W.index_select(0, ib) * torch.conj(W.index_select(0, jb))
+            S12 = smooth(W12 / s_col, dt, dj, scales, mother, engine=config.engine)
+            R2 = S12.abs() ** 2 / (Sself.index_select(0, ib) * Sself.index_select(0, jb))
+            return R2, torch.angle(W12)
+
+    WCT = aWCT = None
+    for b0 in range(0, P, blk):
+        R2, A = pair_block_maps(pi[b0:b0 + blk], pj[b0:b0 + blk])
+        if WCT is None:
+            WCT = R2.new_empty((P,) + R2.shape[1:])
+            aWCT = A.new_empty((P,) + A.shape[1:])
+        WCT[b0:b0 + blk] = R2
+        aWCT[b0:b0 + blk] = A
+    coi = coi_bartlett(n0, dt, mother)
+    if not as_numpy:
+        return WCT, aWCT, coi, freqs, pairs
+    return _host(WCT), _host(aWCT), coi, freqs, pairs
 
 
 # --------------------------------------------------------------------------

@@ -39,7 +39,10 @@ __device__ __forceinline__ float envelope(int mother, float f, float f0, int m) 
   if (mother == kPaul) {
     return f > 0.0f ? expf((float)m * logf(f) - f) : 0.0f;
   }
-  return int_pow(f, m) * expf(-0.5f * (f * f));
+  // DOG: exactly 0 wherever e^{-f^2/2} underflows, where f^m alone may
+  // overflow f32 (f >~ 2.6e6 at m = 6) and the product be inf * 0 = NaN
+  float e = expf(-0.5f * (f * f));
+  return e == 0.0f ? 0.0f : int_pow(f, m) * e;
 }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {

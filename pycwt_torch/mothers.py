@@ -5,8 +5,9 @@ spectrum as ``psi_ft(f) = psi_ft_const() * psi_ft_envelope(f)`` with a real
 envelope and a complex constant: the fused CUDA kernel evaluates the
 envelope per bin and applies the constant once.  Envelopes take and return
 tensors on the caller's device and dtype; Paul's envelope uses the safe form
-``exp(m·log f − f)`` so float32 does not overflow where the reference's
-naive product does, and the reference's overflow-induced NaN rows are
+``exp(m·log f − f)`` and DOG's is exactly 0 wherever ``e^(−f²/2)``
+underflows, so float32 gives 0 where the naive products give inf·0 = NaN;
+the reference's overflow-induced NaN rows are
 replicated host-side by :meth:`reference_nan_rows` (numpy float64).
 
 Constants are the Torrence & Compo (1998) Table-2 values, with ``-1``
@@ -227,8 +228,12 @@ class DOG:
         return self.psi_ft_const() * self.psi_ft_envelope(f)
 
     def psi_ft_envelope(self, f):
+        # Exactly 0 wherever e^(−f²/2) underflows: f^m alone may overflow
+        # there (f ≳ 2.6e6 at m = 6 in float32) and the product be inf·0 =
+        # NaN.  Elsewhere the product, as the kernels compute it.
         f = _as_tensor(f)
-        return _int_pow(f, self.m) * torch.exp(-0.5 * f ** 2)
+        e = torch.exp(-0.5 * f ** 2)
+        return _int_pow(torch.where(e > 0, f, torch.zeros_like(f)), self.m) * e
 
     def psi_ft_const(self) -> complex:
         return complex(-(1j ** self.m) / math.sqrt(math.gamma(self.m + 0.5)))

@@ -567,6 +567,24 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
     return out.reshape(*lead, *out.shape[1:])
 
 
+def _planar_cwt_of_real(y, scales, *, mother: Mother, nfft: int, dt: float,
+                        precision: str = "highest", output: str = "planes"):
+    """The forward CWT of real rows ``y`` ``(..., n)`` on planes, in f32:
+    ``fft_of_real_planar`` zero-padded to ``nfft``, then
+    :func:`fused_cwt_planar` (the kernels on a CUDA tensor), or its plain
+    version below the kernels' 2^8.  Returns the untrimmed width-``nfft``
+    ``output`` (``"planes"``: ``(wr, wi)``, each ``(..., S, nfft)``)."""
+    from .mxu_dft import fft_of_real_planar
+
+    sr, si = fft_of_real_planar(torch.as_tensor(y).to(torch.float32), nfft)
+    scales = torch.as_tensor(scales).to(device=sr.device, dtype=torch.float32)
+    if supported_nfft(nfft):
+        return fused_cwt_planar(sr, si, scales, mother=mother, nfft=nfft,
+                                dt=float(dt), precision=precision, output=output)
+    return _fused_cwt_planar_reference(sr, si, scales, mother=mother, nfft=nfft,
+                                       dt=float(dt), output=output)
+
+
 def fused_cwt(signal_ft, scales, *, mother: Mother, nfft: int, dt: float,
               Ablk: int = 256, Cblk: int = 256, power_only: bool = False,
               interpret: bool = False, precision: str = "highest",

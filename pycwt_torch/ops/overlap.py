@@ -1,0 +1,338 @@
+"""Overlap-save blocked CWT, XWT and WCT of long signals on one device.
+
+Counterpart of the single-device surfaces of ``pycwt_tpu/ops/overlap.py``.
+The global transform pads the whole signal to one power of two and holds the
+(S × nfft) transform and its intermediates at once; here the time axis is cut
+into chunks and each chunk is transformed on its own — the classic
+overlap-save scheme, with the halo sized by the mother wavelet's e-folding
+support at the largest scale:
+
+    halo = ceil(ζ · s_max / dt) samples,  ζ = sqrt(−2·ln ε)
+
+Interior outputs match the global transform to round-off; the outer ``halo``
+samples of the first and last chunk follow zero-padding semantics, inside
+the cone of influence either way.
+
+The chunks run in a Python loop: each chunk's slab of ``chunk + 2·halo``
+samples goes through the transform and its interior ``[H, H + chunk)`` is
+written in place into one preallocated ``(S, n_chunks·chunk)`` output, so
+the peak memory is the output plus ONE chunk's workspace.  On a CUDA f32
+signal the planar surfaces' chunk transforms are ``fft_of_real_planar`` →
+``fused_cwt_planar``: two kernel launches (``cwt_stage_a``, ``cwt_stage_b``)
+a chunk and signal.  :func:`streamed_global_power` and its planar variant
+keep only the ``(S,)`` accumulator of Σ_t |W|², independent of N.
+
+**Near-Nyquist caveat.** For scales where the mother's spectrum is still
+large at the Nyquist frequency (Morlet-6 at the TC98 default smallest scale
+``s0 = 2dt/λ`` has ψ̂(s·π/dt) ≈ 0.96), the frequency-truncated filter's
+impulse response rings with only ~1/t decay, so any finite halo leaves
+blocked-vs-global differences of order ψ̂(s·Ω_nyq)/t.  Scales with
+``s ≳ 4dt`` agree with the global transform to f32 round-off; the finest one
+or two scales agree to ~1e-2 relative.
+
+Entry points take ``device=None``: a tensor's own device, else the card.
+The time-sharded surfaces (``sharded_cwt_overlap_save``,
+``sharded_wct_overlap_planar``) are ROADMAP.md queue 1 item 5.
+"""
+from __future__ import annotations
+
+import math
+import warnings
+
+import numpy as np
+import torch
+
+from ..config import next_pow2
+from ..mothers import Mother
+from ..transform import cwt_batch
+from .fused_cwt import _planar_cwt_of_real
+from .smoothing import smooth_planar_pair
+
+__all__ = [
+    "halo_samples",
+    "cwt_overlap_save",
+    "cwt_overlap_save_planar",
+    "streamed_global_power",
+    "streamed_global_power_planar",
+    "wct_overlap_planar",
+    "xwt_overlap_planar",
+]
+
+
+def halo_samples(max_scale: float, dt: float, eps: float = 1e-7) -> int:
+    """Samples of wavelet support to overlap: ζ·s_max/dt, ζ = sqrt(−2 ln ε)."""
+    zeta = math.sqrt(-2.0 * math.log(eps))
+    return int(math.ceil(zeta * max_scale / dt))
+
+
+def _host_f64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, np.float64)
+
+
+def _warn_near_nyquist(scales, dt: float, mother: Mother,
+                       tol: float = 1e-3) -> None:
+    """Warn where the mother's spectrum is non-negligible at the Nyquist
+    frequency for the finest scale: the blocked transform there agrees with
+    the global one only to ~1e-2 (the near-Nyquist caveat above).  TC98
+    default grids (``s0 = 2dt/λ``) warn; ``s ≳ 4dt`` grids do not."""
+    sj = _host_f64(scales).ravel()
+    env = mother.psi_ft_envelope(
+        torch.as_tensor(sj * math.pi / dt, dtype=torch.float32)).numpy()
+    worst = int(np.argmax(env))
+    if env[worst] > tol:
+        warnings.warn(
+            f"overlap-save: scale {sj[worst]:.4g} has |psi_ft| = "
+            f"{env[worst]:.2g} at the Nyquist frequency; its blocked "
+            f"transform agrees with the global one only to ~1e-2 relative "
+            f"near the edges of each chunk (scales >= ~4*dt = {4 * dt:.4g} "
+            "agree to round-off). See pycwt_torch/ops/overlap.py near-Nyquist "
+            "caveat.",
+            stacklevel=4,
+        )
+
+
+def _halo(scales, dt: float, mother: Mother, eps: float, factor: int = 1,
+          chunk: int | None = None) -> int:
+    """``factor`` wavelet halos of the largest scale, after the near-Nyquist
+    check; a ``chunk`` that is given must be positive."""
+    H = factor * halo_samples(float(_host_f64(scales).max()), dt, eps)
+    _warn_near_nyquist(scales, dt, mother)
+    if chunk is not None and chunk <= 0:
+        raise ValueError("chunk must be positive")
+    return H
+
+
+def _on_device(x, device, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor on ``device``; ``None`` is a tensor's own
+    device, else the card (which raises without one)."""
+    from ..api import _resolve_device
+
+    if device is None and isinstance(x, torch.Tensor):
+        device = x.device
+    else:
+        device = _resolve_device(device)
+    return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+
+def _pad_for_chunks(signal: torch.Tensor, chunk: int, H: int):
+    N = signal.shape[-1]
+    n_chunks = (N + chunk - 1) // chunk
+    padded = signal.new_zeros(n_chunks * chunk + 2 * H)
+    padded[H:H + N] = signal
+    return padded, N, n_chunks
+
+
+def _slab(padded: torch.Tensor, i: int, chunk: int, H: int) -> torch.Tensor:
+    return padded[i * chunk:(i + 1) * chunk + 2 * H]
+
+
+def cwt_overlap_save(signal, scales, dt: float, *, mother: Mother,
+                     chunk: int = 1 << 18, eps: float = 1e-7,
+                     engine: str | None = None, device=None):
+    """Blocked CWT of a long 1-D signal with bounded working memory.
+
+    Each chunk's ``(S × nfft_c)`` transform (``nfft_c = pow2(chunk +
+    2·halo)``, through ``cwt_batch`` with ``engine``) is freed before the
+    next, so the peak memory is the ``(S, N)`` output plus one chunk.
+    Computes in ``torch.get_default_dtype()``.  Returns ``(S, N)`` complex
+    W: interior samples (≥ halo from either end) equal the global
+    transform's; a signal of at most ``chunk`` samples is one global
+    transform.
+    """
+    rdt = torch.get_default_dtype()
+    H = _halo(scales, dt, mother, eps, chunk=chunk)
+    x = _on_device(signal, device, rdt)
+    sc = torch.as_tensor(scales).to(device=x.device, dtype=rdt)
+    kw = dict(mother=mother, engine=engine)
+    N = x.shape[-1]
+    if N <= chunk:
+        W, _ = cwt_batch(x[None], sc, dt, nfft=next_pow2(N), **kw)
+        return W[0]
+    padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
+    nfft = next_pow2(chunk + 2 * H)
+    out = None
+    for i in range(n_chunks):
+        W, _ = cwt_batch(_slab(padded, i, chunk, H)[None], sc, dt, nfft=nfft, **kw)
+        if out is None:
+            out = W.new_empty((W.shape[1], n_chunks * chunk))
+        out[:, i * chunk:(i + 1) * chunk] = W[0, :, H:H + chunk]
+    return out[:, :N]
+
+
+def streamed_global_power(signal, scales, dt: float, *, mother: Mother,
+                          chunk: int = 1 << 18, eps: float = 1e-7,
+                          engine: str | None = None, device=None):
+    """Σ_t |W[s, t]|² of a long signal with peak memory ∝ chunk,
+    independent of N (the TC98 eq. 22 numerator without the transform).
+    Returns ``(S,)`` real; divide by N for the mean."""
+    rdt = torch.get_default_dtype()
+    H = _halo(scales, dt, mother, eps)
+    x = _on_device(signal, device, rdt)
+    sc = torch.as_tensor(scales).to(device=x.device, dtype=rdt)
+    padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
+    nfft = next_pow2(chunk + 2 * H)
+    acc = torch.zeros(sc.shape[0], dtype=rdt, device=x.device)
+    for i in range(n_chunks):
+        W, _ = cwt_batch(_slab(padded, i, chunk, H)[None], sc, dt, mother=mother,
+                         nfft=nfft, engine=engine)
+        # the zero-pad tail of the last chunk stays out of the sum
+        acc += (W[0, :, H:H + min(chunk, N - i * chunk)].abs() ** 2).sum(-1)
+    return acc
+
+
+def cwt_overlap_save_planar(signal, scales, dt: float, *, mother: Mother,
+                            chunk: int = 1 << 18, eps: float = 1e-7,
+                            precision: str = "high", device=None):
+    """:func:`cwt_overlap_save` on f32 planes: each chunk is
+    ``fft_of_real_planar`` → ``fused_cwt_planar`` (the kernels on the
+    card), and the output is the planar pair ``(wr, wi)``, each ``(S, N)``
+    float32.  Same halo contract and near-Nyquist caveat."""
+    H = _halo(scales, dt, mother, eps, chunk=chunk)
+    x = _on_device(signal, device, torch.float32)
+    sc = torch.as_tensor(scales).to(device=x.device, dtype=torch.float32)
+    kw = dict(mother=mother, dt=dt, precision=precision)
+    N = x.shape[-1]
+    if N <= chunk:
+        wr, wi = _planar_cwt_of_real(x, sc, nfft=next_pow2(N), **kw)
+        return wr[:, :N], wi[:, :N]
+    padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
+    nfft = next_pow2(chunk + 2 * H)
+    cr = torch.empty((sc.shape[0], n_chunks * chunk), dtype=torch.float32,
+                     device=x.device)
+    ci = torch.empty_like(cr)
+    for i in range(n_chunks):
+        wr, wi = _planar_cwt_of_real(_slab(padded, i, chunk, H), sc, nfft=nfft, **kw)
+        cr[:, i * chunk:(i + 1) * chunk] = wr[:, H:H + chunk]
+        ci[:, i * chunk:(i + 1) * chunk] = wi[:, H:H + chunk]
+    return cr[:, :N], ci[:, :N]
+
+
+def streamed_global_power_planar(signal, scales, dt: float, *,
+                                 mother: Mother, chunk: int = 1 << 18,
+                                 eps: float = 1e-7, precision: str = "high",
+                                 device=None):
+    """:func:`streamed_global_power` on f32 planes: each chunk's |W|² comes
+    from the kernels' ``power`` epilogue and only the running ``(S,)``
+    accumulator survives a chunk."""
+    H = _halo(scales, dt, mother, eps)
+    x = _on_device(signal, device, torch.float32)
+    sc = torch.as_tensor(scales).to(device=x.device, dtype=torch.float32)
+    padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
+    nfft = next_pow2(chunk + 2 * H)
+    acc = torch.zeros(sc.shape[0], dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        pw = _planar_cwt_of_real(_slab(padded, i, chunk, H), sc, mother=mother,
+                                 nfft=nfft, dt=dt, precision=precision,
+                                 output="power")
+        acc += pw[:, H:H + min(chunk, N - i * chunk)].sum(-1)
+    return acc
+
+
+def _signal_pair(y1, y2, device, normalize: bool, name: str):
+    """Two matching 1-D f32 signals on one device, each normalized there
+    (population std, as numpy's) when ``normalize``."""
+    y1 = _on_device(y1, device, torch.float32)
+    y2 = _on_device(y2, y1.device, torch.float32)
+    if y1.shape != y2.shape or y1.ndim != 1:
+        raise ValueError(
+            f"{name} expects matching 1-D signals, got {tuple(y1.shape)} vs "
+            f"{tuple(y2.shape)}")
+    if normalize:
+        y1 = (y1 - y1.mean()) / y1.std(correction=0)
+        y2 = (y2 - y2.mean()) / y2.std(correction=0)
+    return y1, y2
+
+
+def _wct_chunk_pipeline(slab1, slab2, scales, mother: Mother, nfft: int,
+                        dt: float, dj: float, precision: str):
+    """One chunk of the blocked coherence: two planar chunk CWTs →
+    plane-packed smoothing → coherence ratio and phase, ``(S, nfft)`` each."""
+    kw = dict(mother=mother, nfft=nfft, dt=dt, precision=precision)
+    w1r, w1i = _planar_cwt_of_real(slab1, scales, **kw)
+    w2r, w2i = _planar_cwt_of_real(slab2, scales, **kw)
+    s_col = scales[:, None]
+    S1, S2 = smooth_planar_pair((w1r ** 2 + w1i ** 2) / s_col,
+                                (w2r ** 2 + w2i ** 2) / s_col,
+                                dt, dj, scales, mother)
+    w12r = w1r * w2r + w1i * w2i
+    w12i = w1i * w2r - w1r * w2i
+    S12r, S12i = smooth_planar_pair(w12r / s_col, w12i / s_col,
+                                    dt, dj, scales, mother)
+    return (S12r ** 2 + S12i ** 2) / (S1 * S2), torch.atan2(w12i, w12r)
+
+
+def wct_overlap_planar(y1, y2, scales, dt: float, *, mother: Mother,
+                       dj: float, chunk: int = 1 << 18, eps: float = 1e-7,
+                       precision: str = "high", normalize: bool = True,
+                       smooth_precision: str | None = None, device=None):
+    """Wavelet coherence of two long signals: overlap-save through the
+    whole WCT chain.
+
+    The chunk CWTs have the mother's e-folding support and the time-Gaussian
+    smoothing kernel the same Gaussian family, so one composed halo of
+    ``2·ζ·s_max/dt`` samples makes each chunk's interior coherence equal the
+    global computation to round-off for s ≳ 4·dt (the scale boxcar couples
+    scales, not time, and runs whole per chunk).  Normalization runs on the
+    device.  Peak memory is the two ``(S, N)`` f32 outputs plus one chunk's
+    pipeline.  Near-Nyquist scales depend on where the chunk edges fall:
+    match ``chunk`` when comparing runs.
+
+    ``smooth_precision`` (``None`` or ``"high"``) is accepted for calls
+    written against ``pycwt_tpu``: both run the port's one f32 band product,
+    at least as accurate as the JAX package's 3-pass tier.
+
+    Returns ``(WCT, aWCT)``, each ``(S, N)`` float32.
+    """
+    if smooth_precision not in (None, "high"):
+        raise ValueError(
+            f"smooth_precision must be None or 'high', got {smooth_precision!r}")
+    H = _halo(scales, dt, mother, eps, factor=2, chunk=chunk)
+    y1, y2 = _signal_pair(y1, y2, device, normalize, "wct_overlap_planar")
+    sc = torch.as_tensor(scales).to(device=y1.device, dtype=torch.float32)
+    p1, N, n_chunks = _pad_for_chunks(y1, chunk, H)
+    p2, _, _ = _pad_for_chunks(y2, chunk, H)
+    nfft = next_pow2(chunk + 2 * H)
+    cR = torch.empty((sc.shape[0], n_chunks * chunk), dtype=torch.float32,
+                     device=y1.device)
+    cA = torch.empty_like(cR)
+    for i in range(n_chunks):
+        R, A = _wct_chunk_pipeline(_slab(p1, i, chunk, H), _slab(p2, i, chunk, H),
+                                   sc, mother, nfft, dt, dj, precision)
+        cR[:, i * chunk:(i + 1) * chunk] = R[:, H:H + chunk]
+        cA[:, i * chunk:(i + 1) * chunk] = A[:, H:H + chunk]
+    return cR[:, :N], cA[:, :N]
+
+
+def xwt_overlap_planar(y1, y2, scales, dt: float, *, mother: Mother,
+                       chunk: int = 1 << 18, eps: float = 1e-7,
+                       precision: str = "high", normalize: bool = True,
+                       device=None):
+    """Cross-wavelet transform of two long signals by overlap-save: two
+    planar chunk CWTs, the planar cross spectrum, then ``|W12|`` and its
+    phase (wavelet halo only: no smoothing).  Returns ``(|W12|, phase)``,
+    each ``(S, N)`` float32, with :func:`cwt_overlap_save_planar`'s
+    interior and near-Nyquist contract.  The theoretical XWT significance
+    is a per-grid curve of the fitted AR(1) coefficients
+    (:func:`pycwt_torch.stats.ar1`, ``ar1_spectrum``)."""
+    H = _halo(scales, dt, mother, eps, chunk=chunk)
+    y1, y2 = _signal_pair(y1, y2, device, normalize, "xwt_overlap_planar")
+    sc = torch.as_tensor(scales).to(device=y1.device, dtype=torch.float32)
+    p1, N, n_chunks = _pad_for_chunks(y1, chunk, H)
+    p2, _, _ = _pad_for_chunks(y2, chunk, H)
+    nfft = next_pow2(chunk + 2 * H)
+    kw = dict(mother=mother, nfft=nfft, dt=dt, precision=precision)
+    cM = torch.empty((sc.shape[0], n_chunks * chunk), dtype=torch.float32,
+                     device=y1.device)
+    cA = torch.empty_like(cM)
+    for i in range(n_chunks):
+        w1r, w1i = (w[:, H:H + chunk] for w in
+                    _planar_cwt_of_real(_slab(p1, i, chunk, H), sc, **kw))
+        w2r, w2i = (w[:, H:H + chunk] for w in
+                    _planar_cwt_of_real(_slab(p2, i, chunk, H), sc, **kw))
+        w12r = w1r * w2r + w1i * w2i          # W1 · conj(W2), planar
+        w12i = w1i * w2r - w1r * w2i
+        cM[:, i * chunk:(i + 1) * chunk] = torch.sqrt(w12r ** 2 + w12i ** 2)
+        cA[:, i * chunk:(i + 1) * chunk] = torch.atan2(w12i, w12r)
+    return cM[:, :N], cA[:, :N]

@@ -77,10 +77,16 @@ def test_public_signatures_match_pycwt_tpu():
     names = {(m, n) for m, n, _, _ in shared}
     # the surface this slice ported is among them
     for fn in ("wct_significance", "wct_significance_batch", "wct",
-               "mc_significance_from_histogram"):
+               "mc_significance_from_histogram", "xwt_pairs", "xwt_pairs_planar",
+               "wct_pairs", "wct_matrix"):
         assert ("pycwt_torch.coherence", fn) in names
     for fn in ("rednoise_members", "rednoise_members_pairs"):
         assert ("pycwt_torch.stats", fn) in names
+    assert ("pycwt_torch.analysis", "wct_matrix_analysis") in names
+    for fn in ("halo_samples", "cwt_overlap_save", "cwt_overlap_save_planar",
+               "streamed_global_power", "streamed_global_power_planar",
+               "wct_overlap_planar", "xwt_overlap_planar"):
+        assert ("pycwt_torch.ops.overlap", fn) in names
     used = set()
     mismatches = []
     for mod, name, tfn, jfn in shared:
