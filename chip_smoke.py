@@ -25,7 +25,16 @@ just after:
 * the overlap-save long-signal surfaces (``ops/overlap.py``) at N = 2^22
   against the global transform and timed at N = 2^24, 64 scales, chunk
   2^18, with their launches and peak memory;
-* DOG(6) at scales where f^6 overflows f32, through K1+K2 and K3.
+* DOG(6) at scales where f^6 overflows f32, through K1+K2 and K3;
+* parity mode (``cwt_twofloat``, ``xwt_twofloat``, ``wct_twofloat``) in
+  native f64 against the goldens and, at 2^20 samples × 64 scales, against
+  the CPU f64 port, timed beside the f32 K1+K2 planes path, with no kernel
+  launched;
+* gradients through the coherence stack (``_wct_core`` on the planar route
+  through K1+K2 and through ``cwt_direct``, the f64 route against finite
+  differences, the lag-fitting loop);
+* ``utils/profiling`` (a trace naming both kernels, ``PhaseTimer``) and
+  ``enable_compilation_cache`` in two child processes.
 
 K1 and K2 are checked at every column radix plan from 16 to 2048 points
 (nfft 2^8 to 2^22), and lightly at 4096 and 8192 (2^24, 2^26).  It times K1
@@ -36,8 +45,8 @@ K1's and K2's device time, and ``cwt_direct``, the K1+K2 pair and the
 times of one call stand beside them as ``wall_ms``).  It prints one JSON
 line of kernel numbers and, last, one JSON ``ok`` line.  ``--trace`` profiles
 the 4,000-point WCT and a 300-member Monte-Carlo run on both routes, the
-32-station ``wct_matrix`` and ``wct_matrix_analysis`` and two overlap-save
-surfaces at N = 2^24 instead;
+32-station ``wct_matrix`` and ``wct_matrix_analysis``, two overlap-save
+surfaces at N = 2^24 and parity mode's 2^20 × 64 f64 transform instead;
 ``--ab PARENT`` times the 4,000-point WCT and its smoothing for an unpacked
 parent tree and this one in turns.  Any failure raises:
 the exit code is then non-zero and no ``ok`` line is printed.  Without a
@@ -545,18 +554,24 @@ def phase_direct_vs_plain():
 
 
 @contextlib.contextmanager
-def _route(small: bool):
-    """PYCWT_TPU_SMALL_KERNEL=1 (the cwt_direct route) or unset (K1+K2)
-    inside the block; the variable's old value after it."""
-    old = os.environ.pop("PYCWT_TPU_SMALL_KERNEL", None)
-    if small:
-        os.environ["PYCWT_TPU_SMALL_KERNEL"] = "1"
+def _env(name, value):
+    """The environment variable ``name`` set to ``value`` (unset for None)
+    inside the block; its old state after it."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("PYCWT_TPU_SMALL_KERNEL", None)
+        os.environ.pop(name, None)
         if old is not None:
-            os.environ["PYCWT_TPU_SMALL_KERNEL"] = old
+            os.environ[name] = old
+
+
+def _route(small: bool):
+    """PYCWT_TPU_SMALL_KERNEL=1 (the cwt_direct route) or unset (K1+K2)
+    inside the block."""
+    return _env("PYCWT_TPU_SMALL_KERNEL", "1" if small else None)
 
 
 def phase_slice_path(small: bool):
@@ -1621,6 +1636,318 @@ def phase_long(card):
     return out
 
 
+#: The bench shape (bench.py:101-108): 2^20 f32 samples, 64 scales
+BENCH_N, BENCH_S = 1 << 20, 64
+#: The JAX package's parity-cost shape (tools/tpu_bench_twofloat.py:56-61):
+#: one 2^20-sample f64 signal, Morlet-6, 64 scales, dj = 0.25, s0 = 2
+PARITY_N, PARITY_S = 1 << 20, 64
+#: parity mode against the f64 goldens (tests/test_tpu_chip.py:63-65), and
+#: the card's 2^20 × 64 W against the CPU f64 port (of max|W|)
+PARITY_BOUND, PARITY_ROWS_BOUND = 1e-6, 1e-10
+
+
+def phase_parity(card):
+    """Parity mode on the card: the goldens through cwt_twofloat,
+    xwt_twofloat and wct_twofloat at 1e-6; the 2^20 × 64 f64 transform
+    against the CPU f64 port on 8 rows, timed (CUDA events, median of 5)
+    as the device part alone and as the whole call with its 1 GiB fetch,
+    beside the f32 K1+K2 planes path at the same shape, with its peak
+    bytes; no kernel launched, also under PYCWT_TPU_ENGINE=planar; the
+    batch guard."""
+    import pycwt_torch as pt
+    from pycwt_torch.api import _cwt_planar_parts
+    from pycwt_torch.config import CWTConfig
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops import twofloat as tf
+    from pycwt_torch.transform import build_scale_grid, cwt_batch
+
+    _reset_counts()
+    g = np.load(os.path.join(GOLDEN, "cwt_nino3_morlet6.npz"))
+    W, *_ = pt.cwt_twofloat(g["signal"], float(g["dt"]))
+    check(W.dtype == np.complex128 and W.shape == g["W"].shape, "cwt_twofloat shape/dtype")
+    errs = {"cwt_nino3_power": rel_err(np.abs(W) ** 2, np.abs(g["W"]) ** 2)}
+    g = np.load(os.path.join(GOLDEN, "xwt_jao_jbaltic_norm1.npz"))
+    W12, *_ = pt.xwt_twofloat(g["y1"], g["y2"], float(g["dt"]))
+    errs["xwt_jao_abs"] = rel_err(np.abs(W12), np.abs(g["W12"]))
+    g = np.load(os.path.join(GOLDEN, "wct_jao_jbaltic.npz"))
+    WCT, *_ = pt.wct_twofloat(g["y1"], g["y2"], float(g["dt"]))
+    errs["wct_jao"] = rel_err(WCT, g["WCT"])
+    check(all(e <= PARITY_BOUND for e in errs.values()), f"parity goldens: {errs}")
+
+    N, S, mother = PARITY_N, PARITY_S, pt.Morlet(6)
+    kw = dict(dj=0.25, s0=2.0, J=S - 1)
+    sj = build_scale_grid(N, 1.0, mother=mother, **kw).sj
+    check(len(sj) == S, "parity scale grid size")
+    y = np.random.default_rng(0).standard_normal(N)
+    W, sj_out, *_ = pt.cwt_twofloat(y, 1.0, **kw)
+    check(W.shape == (S, N) and W.dtype == np.complex128 and np.isfinite(W).all()
+          and np.array_equal(sj_out, sj), "parity 2^20 x 64: shape/dtype/finite/grid")
+    rows = slice(0, S, S // 8)
+    W_cpu, _ = cwt_batch(torch.tensor(y)[None], torch.tensor(sj[rows]), 1.0, mother=mother,
+                         nfft=N, config=CWTConfig(dtype=torch.float64), engine="xla")
+    w_max = float(np.abs(W).max())
+    err_rows = float(np.abs(W[rows] - W_cpu[0].numpy()).max()) / w_max
+    check(err_rows <= PARITY_ROWS_BOUND, f"parity 2^20 x 64 vs CPU f64 on 8 rows: {err_rows}")
+    del W_cpu
+
+    x = torch.tensor(y, device="cuda")[None]
+    device_call = lambda: tf._cwt_f64(x, sj, 1.0, mother, N)  # noqa: E731
+    peak, _ = _peak_bytes(device_call)
+    dev_ms = time_ms(device_call, runs=5, warmup=1)
+    call_ms = time_ms(lambda: pt.cwt_twofloat(y, 1.0, **kw), runs=5, warmup=1)
+    launches = dict(fc.KERNEL_LAUNCHES)
+    check(sum(launches.values()) == 0, f"parity mode launched kernels: {launches}")
+    with _env("PYCWT_TPU_ENGINE", "planar"):
+        W_env, *_ = pt.cwt_twofloat(y, 1.0, **kw)
+    env_diff = float(np.abs(W_env - W).max()) / w_max
+    del W_env
+    launches_env = dict(fc.KERNEL_LAUNCHES)
+    check(sum(launches_env.values()) == 0 and env_diff <= 1e-14,
+          f"parity under PYCWT_TPU_ENGINE=planar: launches {launches_env}, diff {env_diff}")
+    try:
+        pt.cwt_twofloat(np.zeros((64, 2048)), 1.0, max_bytes=1e6)
+        raise AssertionError("parity batch guard did not raise")
+    except ValueError as e:
+        check("Split the batch" in str(e), f"parity batch guard message: {e}")
+
+    # the f32 K1+K2 planes path at the same shape, its launches counted apart
+    x32, sc32 = x.float(), torch.tensor(sj, dtype=torch.float32, device="cuda")
+    f32_device = lambda: fc._planar_cwt_of_real(x32, sc32, mother=mother, nfft=N,  # noqa: E731
+                                                dt=1.0)
+    _reset_counts()
+    f32_peak, _ = _peak_bytes(f32_device)
+    check(_four_step_only(fc.KERNEL_LAUNCHES), f"f32 planes path: {fc.KERNEL_LAUNCHES}")
+    f32_dev_ms = time_ms(f32_device, runs=5, warmup=1)
+    f32_call_ms = time_ms(lambda: _cwt_planar_parts(y, 1.0, wavelet=mother, **kw), runs=5,
+                          warmup=1)
+    del W, x, x32
+    out = dict(golden_errs=errs, rows_err=err_rows, device_ms=dev_ms, call_ms=call_ms,
+               peak_bytes=peak, launches=launches, env_planar_diff=env_diff,
+               f32_planes_device_ms=f32_dev_ms, f32_planes_call_ms=f32_call_ms,
+               f32_planes_peak_bytes=f32_peak)
+    log(f"[{card}] parity mode: goldens {errs} (bound {PARITY_BOUND}); 2^20 x 64 f64 W vs "
+        f"the CPU f64 port on 8 rows {err_rows:.3e} of max|W| (bound {PARITY_ROWS_BOUND}); "
+        f"device part {dev_ms:.4f} ms, whole call with the 1 GiB fetch {call_ms:.4f} ms "
+        f"(CUDA events, median of 5), peak {peak:.4e} bytes; f32 K1+K2 planes at the same "
+        f"shape: device {f32_dev_ms:.4f} ms, whole call {f32_call_ms:.4f} ms, peak "
+        f"{f32_peak:.4e} bytes; kernel launches in parity mode {launches}, under "
+        f"PYCWT_TPU_ENGINE=planar {launches_env} (result diff {env_diff:.1e}); the batch "
+        f"guard raises")
+    return out
+
+
+def phase_parity_trace(calls=5):
+    """``--trace``: torch.profiler over ``calls`` calls of parity mode's
+    device part at 2^20 × 64 (f64 bank × spectrum, cuFFT Z2Z): device time
+    by kernel, and the busy share of the wall time under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import pycwt_torch as pt
+    from pycwt_torch.ops import twofloat as tf
+    from pycwt_torch.transform import build_scale_grid
+
+    sj = build_scale_grid(PARITY_N, 1.0, dj=0.25, s0=2.0, J=PARITY_S - 1).sj
+    x = torch.tensor(np.random.default_rng(0).standard_normal(PARITY_N), device="cuda")[None]
+    for _ in range(2):
+        tf._cwt_f64(x, sj, 1.0, pt.Morlet(6), PARITY_N)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            tf._cwt_f64(x, sj, 1.0, pt.Morlet(6), PARITY_N)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    rows = _device_rows(prof, calls)
+    busy = sum(r[0] for r in rows)
+    log(f"trace, parity mode's device part at 2^20 x 64 (f64): {wall:.4f} ms wall per call "
+        f"under the profiler, device busy {busy:.4f} ms ({100 * busy / wall:.1f} %), "
+        f"{sum(r[1] for r in rows):g} kernel launches")
+    for ms, n, key in rows[:10]:
+        log(f"  {ms:.4f} ms  x{n:g}  {key[:90]}")
+
+
+def phase_coherence_gradient():
+    """Gradients through the coherence stack on the card
+    (tests/test_autodiff.py:114-231): the planar _wct_core through K1+K2 at
+    nfft 2^14 and through cwt_direct at 2^12 against the same loss on the
+    plain versions (2e-4 of the largest gradient), the f64 xla _wct_core
+    against centered finite differences (1e-4), and the 60-step lag fit in
+    f64 (within 0.2 of 3.7).  The problems are the tests' own
+    (tests/test_torch_autodiff_support.py)."""
+    import importlib.util
+
+    from pycwt_torch import coherence as tco
+    from pycwt_torch.ops import fused_cwt as fc
+
+    spec = importlib.util.spec_from_file_location("test_torch_autodiff_support", os.path.join(
+        os.path.dirname(GOLDEN), "test_torch_autodiff_support.py"))
+    sup = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sup)
+    M6, TRUE_LAG = sup.M6, sup.TRUE_LAG
+    out = dict(err={}, launches={})
+    for small, nfft, name in ((False, 1 << 14, "K1+K2"), (True, 1 << 12, "cwt_direct")):
+        rng = np.random.default_rng(6)
+        y1, y2 = (torch.tensor(rng.standard_normal(nfft), dtype=torch.float32,
+                               device="cuda") for _ in range(2))
+        scales = torch.tensor([4.0, 16.0, 64.0], device="cuda")
+        with _route(small):
+            a = y1.clone().requires_grad_(True)
+            _reset_counts()
+            WCT, _, _ = tco._wct_core(a[None], y2[None], scales, 1.0, mother=M6,
+                                      nfft=nfft, dj=0.5, engine="planar")
+            (gk,) = torch.autograd.grad(WCT.mean(), a)
+            torch.cuda.synchronize()
+            launches = dict(fc.KERNEL_LAUNCHES)
+        a = y1.clone().requires_grad_(True)
+        (gr,) = torch.autograd.grad(sup.reference_loss(y2, scales, nfft)(a), a)
+        err = float((gk - gr).abs().max() / gr.abs().max())
+        want = ({"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 2} if small else
+                {"cwt_stage_a": 2, "cwt_stage_b": 2, "cwt_direct": 0})
+        check(launches == want, f"{name} gradient route launched {launches}")
+        check(bool(torch.isfinite(gk).all()) and err <= 2e-4,
+              f"{name} planar _wct_core gradient vs plain: {err}")
+        out["err"][name] = err
+        out["launches"][name] = launches
+
+    y1, _, _, wct_loss = sup.wct_sum_problem("cuda")
+    (g,) = torch.autograd.grad(wct_loss(y1), y1)
+    check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, "f64 gradient finite")
+    fd_err = sup.finite_difference_error(wct_loss, y1, g)
+    check(fd_err < 1e-4, f"f64 _wct_core gradient vs finite differences: {fd_err}")
+    out["err"]["f64_vs_finite_differences"] = fd_err
+
+    t0 = time.perf_counter()
+    lag, losses = sup.fit_lag(sup.lag_problem("cuda"), "cuda")
+    fit_s = time.perf_counter() - t0
+    check(losses[-1] < losses[0] and abs(lag - TRUE_LAG) < 0.2,
+          f"lag fit: lag {lag}, loss {losses[0]} -> {losses[-1]}")
+    out.update(lag=lag, lag_fit_s=fit_s)
+    log(f"coherence-stack gradients on the card: planar _wct_core vs plain "
+        f"K1+K2 (nfft 2^14) {out['err']['K1+K2']:.3e}, cwt_direct (2^12) "
+        f"{out['err']['cwt_direct']:.3e} (bound 2e-4), launches {out['launches']}; f64 xla "
+        f"vs finite differences {fd_err:.3e} (bound 1e-4); lag fit {lag:.4f} "
+        f"(true {TRUE_LAG}, bound 0.2) in 60 steps, {fit_s:.2f} s")
+    return out
+
+
+def _trace_names_kernels(path, names):
+    with open(path) as f:
+        text = f.read()
+    return all(n in text for n in names)
+
+
+def _bench_pipeline():
+    """One bench-shape pipeline (2^20 samples, 64 scales, Morlet-6, planar
+    rFFT then K1+K2 to power_sum) on the card, as a function of nothing."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+    from pycwt_torch.transform import build_scale_grid
+
+    N0, S = BENCH_N, BENCH_S
+    x = torch.tensor(np.random.default_rng(0).standard_normal(N0), dtype=torch.float32,
+                     device="cuda")
+    scales = torch.tensor(build_scale_grid(N0, 1.0, dj=0.25, s0=2.0, J=S - 1).sj,
+                          dtype=torch.float32, device="cuda")
+
+    def pipeline():
+        sr, si = fft_of_real_planar(x, N0, half=True)
+        return fc.fused_cwt_planar(sr, si, scales, mother=pt.Morlet(6), nfft=N0, dt=1.0,
+                                   output="power_sum")
+    return pipeline
+
+
+def first_call_trace(log_dir):
+    """``--first-call-trace DIR``, run in a fresh process: the process's
+    first CUDA work, the inputs and one bench-shape pipeline call, all under
+    profiling.trace(DIR)."""
+    from pycwt_torch.utils import profiling
+
+    check(not torch.cuda.is_initialized(), "CUDA initialized before the traced region")
+    with profiling.trace(log_dir):
+        _bench_pipeline()()
+
+
+def phase_profiling(card, bench_rate):
+    """utils/profiling and the build cache: one bench-shape pipeline call
+    under profiling.trace (its trace names cwt_stage_a and cwt_stage_b),
+    the same trace of a fresh process whose first CUDA work is the traced
+    call, 11 calls timed by PhaseTimer beside phase_bench_shape's rate, and
+    enable_compilation_cache in two child processes: the first builds into
+    a fresh directory, the second loads from it without running nvcc."""
+    import glob
+    import shutil
+
+    from pycwt_torch.utils import profiling
+
+    N0, S = BENCH_N, BENCH_S
+    pipeline = _bench_pipeline()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "pycwt_torch", "_build", f"profiling-{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    pipeline()
+    # CUPTI has recorded no device activity once in a few hundred profiles
+    for attempt in range(3):
+        log_dir = os.path.join(work, f"trace{attempt}")
+        with profiling.trace(log_dir):
+            pipeline()
+        files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        check(len(files) == 1, f"trace files: {files}")
+        named = _trace_names_kernels(files[0], ("cwt_stage_a", "cwt_stage_b"))
+        if named:
+            break
+    check(named, f"the trace names neither kernel: {files[0]}")
+    trace_bytes = os.path.getsize(files[0])
+    for first_attempt in range(3):
+        first_dir = os.path.join(work, f"first{first_attempt}")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--first-call-trace",
+                        first_dir], check=True, capture_output=True, text=True, timeout=300)
+        first = glob.glob(os.path.join(first_dir, "*.pt.trace.json"))
+        check(len(first) == 1, f"first-call trace files: {first}")
+        first_named = _trace_names_kernels(first[0], ("cwt_stage_a", "cwt_stage_b"))
+        if first_named:
+            break
+    check(first_named, f"a fresh process's first traced call names neither kernel: {first[0]}")
+
+    timer = profiling.PhaseTimer()
+    for _ in range(11):
+        with timer.phase("bench_pipeline", samples=N0, scales=S):
+            pipeline()
+    rate = timer.report()["bench_pipeline"]["sample_scales_per_s"]
+
+    cache = os.path.join(work, "cuda_build")
+    child = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+             "from pycwt_torch.utils import enable_compilation_cache; "
+             "from pycwt_torch.ops import _build; "
+             "enable_compilation_cache(sys.argv[2]); "
+             "[_build.library(n) for n in _build.SOURCES]; "
+             "print(json.dumps({n: s for n, (s, _) in _build.BUILD_LOG.items()}))")
+    builds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", child, here, cache], check=True,
+                             capture_output=True, text=True, timeout=600)
+        builds.append((json.loads(res.stdout.strip().splitlines()[-1]),
+                       time.perf_counter() - t0))
+    from pycwt_torch.ops import _build
+    libs = sorted(os.path.basename(p) for p in glob.glob(os.path.join(cache, "*.so")))
+    check(set(builds[0][0]) == set(_build.SOURCES) and len(libs) == len(_build.SOURCES),
+          f"the first process built {builds[0][0]}, the cache holds {libs}")
+    check(builds[1][0] == {}, f"the second process ran nvcc: {builds[1][0]}")
+    shutil.rmtree(work, ignore_errors=True)
+    out = dict(trace_bytes=trace_bytes, trace_attempts=attempt + 1,
+               first_call_trace_attempts=first_attempt + 1, phase_timer_rate=rate,
+               cache_first_build_s=builds[0][0], cache_first_process_s=builds[0][1],
+               cache_second_process_s=builds[1][1], cache_libs=libs)
+    log(f"[{card}] profiling: trace of one bench-shape call names cwt_stage_a and "
+        f"cwt_stage_b ({trace_bytes} bytes, attempt {attempt + 1}), also as a fresh "
+        f"process's first CUDA work (attempt {first_attempt + 1}); PhaseTimer over 11 "
+        f"calls {rate:.4e} sample-scales/s (phase_bench_shape {bench_rate:.4e}); build "
+        f"cache: first process built {builds[0][0]} in {builds[0][1]:.2f} s, second "
+        f"loaded {libs} without nvcc in {builds[1][1]:.2f} s")
+    return out
+
+
 def main():
     card = phase_device()
     t0 = time.perf_counter()
@@ -1641,6 +1968,9 @@ def main():
     pairs = phase_pairs(card)
     dog = phase_dog_repair(card)
     long = phase_long(card)
+    parity = phase_parity(card)
+    grad = phase_coherence_gradient()
+    prof = phase_profiling(card, bench["rate"])
     common = dict(route="cuda", source=KERNEL_SOURCE, library_ms=bench["lib_ms"],
                   library_call="torch.fft.ifft of the filtered (64, 2^20) complex64 product",
                   max_rel_err_by_tier=worst, planes_err_vs_f64=four_step_vs_f64,
@@ -1695,6 +2025,8 @@ def main():
              f"overlap chunk (1, 64, {long['chunk_nfft']})": long["kernel_err"]})
         k["dog6_repair_err_vs_f64"] = dog["cwt_direct" if name == "cwt_direct"
                                           else "cwt_stage_a"]
+        k["coherence_grad_launches"] = {
+            route: counts[name] for route, counts in grad["launches"].items()}
     log(json.dumps({"pipeline_ms": bench["ms_pipe"], "pipeline_device_ms": bench["dev_pipe"],
                     "plain_pipeline_ms": bench["plain_pipe"],
                     "sample_scales_per_s": bench["rate"],
@@ -1722,6 +2054,23 @@ def main():
                     "distinct_nulls": pairs["distinct_nulls"],
                     "pairs_planes_a_pair": pairs["planes_a_pair"],
                     "overlap_2p24": long["surfaces"], "overlap_2p22_errs": long["errs_2p22"],
+                    "parity_golden_errs": parity["golden_errs"],
+                    "parity_2p20_rows_err": parity["rows_err"],
+                    "parity_2p20_device_ms": parity["device_ms"],
+                    "parity_2p20_call_ms": parity["call_ms"],
+                    "parity_2p20_peak_bytes": parity["peak_bytes"],
+                    "parity_launches": parity["launches"],
+                    "parity_env_planar_diff": parity["env_planar_diff"],
+                    "f32_planes_2p20_device_ms": parity["f32_planes_device_ms"],
+                    "f32_planes_2p20_call_ms": parity["f32_planes_call_ms"],
+                    "f32_planes_2p20_peak_bytes": parity["f32_planes_peak_bytes"],
+                    "coherence_grad_errs": grad["err"],
+                    "coherence_grad_launches": grad["launches"],
+                    "coherence_grad_lag": grad["lag"],
+                    "phase_timer_rate": prof["phase_timer_rate"],
+                    "build_cache": {k: prof[k] for k in (
+                        "cache_first_build_s", "cache_first_process_s",
+                        "cache_second_process_s", "cache_libs")},
                     "card": card, "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1736,6 +2085,9 @@ if __name__ == "__main__":
         phase_wct_trace()
         phase_mc_trace()
         phase_pairs_long_trace()
+        phase_parity_trace()
+    elif sys.argv[1:2] == ["--first-call-trace"] and len(sys.argv) == 3:
+        first_call_trace(sys.argv[2])
     elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         phase_device()
         phase_ab(sys.argv[2])

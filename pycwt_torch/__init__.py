@@ -10,8 +10,11 @@ Ported so far: the forward-CWT main path, the TC98 statistics, XWT, WCT and
 its Monte-Carlo significance (single pair and batched), the many-pair
 surfaces (``xwt_pairs``, ``xwt_pairs_planar``, ``wct_pairs``,
 ``wct_matrix``) and the single-device overlap-save long-signal transforms
-(:mod:`pycwt_torch.ops.overlap`); the rest of ``pycwt_tpu/__init__.py``'s
-exports are listed in ``ROADMAP.md``.
+(:mod:`pycwt_torch.ops.overlap`), parity mode on native float64
+(``cwt_twofloat``, ``xwt_twofloat``, ``wct_twofloat``), and the profiling
+and build-cache utilities (:mod:`pycwt_torch.utils.profiling`,
+``utils.enable_compilation_cache``); the multi-device surfaces of
+``pycwt_tpu`` are listed in ``ROADMAP.md``.
 """
 
 from . import mothers, sample  # noqa: F401
@@ -20,6 +23,7 @@ from .coherence import (wct, wct_matrix, wct_pairs, wct_significance,  # noqa: F
                         wct_significance_batch, xwt,
                         xwt_pairs, xwt_pairs_planar, xwt_planar)
 from .mothers import DOG, MexicanHat, Morlet, Paul  # noqa: F401
+from .ops.twofloat import cwt_twofloat, wct_twofloat, xwt_twofloat  # noqa: F401
 from .stats import ar1, ar1_batch, ar1_spectrum, rednoise  # noqa: F401
 from .utils.helpers import boxpdf, find, get_cache_dir, rect  # noqa: F401
 
@@ -27,7 +31,7 @@ __all__ = [
     "cwt", "cwt_power", "icwt", "significance", "xwt", "xwt_pairs",
     "xwt_pairs_planar", "xwt_planar",
     "wct", "wct_matrix", "wct_pairs", "wct_significance",
-    "wct_significance_batch",
+    "wct_significance_batch", "cwt_twofloat", "xwt_twofloat", "wct_twofloat",
     "mothers", "Morlet", "Paul", "DOG", "MexicanHat",
     "ar1", "ar1_batch", "ar1_spectrum", "rednoise", "find", "rect", "boxpdf",
     "get_cache_dir",

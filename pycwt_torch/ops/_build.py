@@ -16,10 +16,11 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["build_all", "library", "BUILD_DIR"]
+__all__ = ["build_all", "library", "set_build_dir", "BUILD_DIR"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+#: Where libraries are built and looked up; :func:`set_build_dir` moves it
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 #: library name -> its CUDA source in csrc/
@@ -60,6 +61,13 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def set_build_dir(path: str) -> None:
+    """Build into, and load from, ``path`` from now on.  A library already
+    loaded in this process stays the one loaded."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(path)
 
 
 def _target(name: str, csrc_dir: str = CSRC_DIR) -> str:

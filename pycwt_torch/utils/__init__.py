@@ -1,1 +1,2 @@
-from .helpers import boxpdf, find, get_cache_dir, rect  # noqa: F401
+from .helpers import (boxpdf, enable_compilation_cache, find,  # noqa: F401
+                      get_cache_dir, rect)

@@ -1,8 +1,9 @@
 """Host-side helper utilities (API parity with reference ``pycwt/helpers.py``).
 
 Counterpart of ``pycwt_tpu/utils/helpers.py``: small, inherently host/numpy
-operations (index finding, rank transforms, cache paths).  The cache
-directory is the JAX package's, so the two packages share their caches.
+operations (index finding, rank transforms, cache paths), and the build
+cache of the port's CUDA libraries.  The cache directory is the JAX
+package's, so the two packages share their caches.
 
 Reference bugs fixed here (documented, with the fixed behavior under test):
 
@@ -15,7 +16,8 @@ import os
 
 import numpy as np
 
-__all__ = ["find", "rect", "boxpdf", "get_cache_dir"]
+__all__ = ["find", "rect", "boxpdf", "get_cache_dir",
+           "enable_compilation_cache"]
 
 
 def find(condition):
@@ -74,3 +76,26 @@ def get_cache_dir() -> str:
     )
     os.makedirs(cache_dir, exist_ok=True)
     return cache_dir
+
+
+def enable_compilation_cache(path: str | None = None) -> str:
+    """Keep the port's compiled CUDA libraries in a persistent directory, so
+    that ``nvcc`` runs once per machine and source, not once per checkout:
+    the counterpart of the JAX package's persistent XLA cache.
+
+    ``path`` defaults to ``<get_cache_dir()>/cuda_build`` (honors
+    ``PYCWT_TPU_CACHE_DIR``); the directory is created and returned.  Safe
+    to call more than once.  A later first load of each library
+    (``ops/_build.py``) loads it from there, or builds it there when its
+    source, headers or flags changed (the file name hashes them).  A library
+    already loaded in this process stays loaded from where it was: call
+    this before the first transform on the card.  Without a call, libraries
+    build into ``pycwt_torch/_build/``.
+    """
+    from ..ops import _build
+
+    if path is None:
+        path = os.path.join(get_cache_dir(), "cuda_build")
+    os.makedirs(path, exist_ok=True)
+    _build.set_build_dir(path)
+    return path

@@ -87,6 +87,12 @@ def test_public_signatures_match_pycwt_tpu():
                "streamed_global_power", "streamed_global_power_planar",
                "wct_overlap_planar", "xwt_overlap_planar"):
         assert ("pycwt_torch.ops.overlap", fn) in names
+    for fn in ("df_from_f64", "df_to_f64", "df_add", "df_sub", "df_mul", "fft_df",
+               "cwt_twofloat", "smooth_twofloat", "xwt_twofloat", "wct_twofloat"):
+        assert ("pycwt_torch.ops.twofloat", fn) in names
+    for fn in ("trace", "log_sharding"):
+        assert ("pycwt_torch.utils.profiling", fn) in names
+    assert ("pycwt_torch.utils.helpers", "enable_compilation_cache") in names
     used = set()
     mismatches = []
     for mod, name, tfn, jfn in shared:
