@@ -34,7 +34,12 @@ just after:
   through K1+K2 and through ``cwt_direct``, the f64 route against finite
   differences, the lag-fitting loop);
 * ``utils/profiling`` (a trace naming both kernels, ``PhaseTimer``) and
-  ``enable_compilation_cache`` in two child processes.
+  ``enable_compilation_cache`` in two child processes;
+* ``pycwt_torch.parallel`` (``phase_parallel``) in child processes of this
+  script (``--parallel-rank RANK WORLD BACKEND DIR``): every sharded surface
+  on one NCCL rank against the unsharded port, then on four ranks sharing
+  the card over gloo, each rank's block against the one-rank result
+  (the rank-side scenarios are ``tests/test_torch_parallel_support.py``'s).
 
 K1 and K2 are checked at every column radix plan from 16 to 2048 points
 (nfft 2^8 to 2^22), and lightly at 4096 and 8192 (2^24, 2^26).  It times K1
@@ -1766,6 +1771,17 @@ def phase_parity_trace(calls=5):
         log(f"  {ms:.4f} ms  x{n:g}  {key[:90]}")
 
 
+def _support(name):
+    """A support module of the tests (no JAX), imported by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(GOLDEN), f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_coherence_gradient():
     """Gradients through the coherence stack on the card
     (tests/test_autodiff.py:114-231): the planar _wct_core through K1+K2 at
@@ -1774,15 +1790,10 @@ def phase_coherence_gradient():
     against centered finite differences (1e-4), and the 60-step lag fit in
     f64 (within 0.2 of 3.7).  The problems are the tests' own
     (tests/test_torch_autodiff_support.py)."""
-    import importlib.util
-
     from pycwt_torch import coherence as tco
     from pycwt_torch.ops import fused_cwt as fc
 
-    spec = importlib.util.spec_from_file_location("test_torch_autodiff_support", os.path.join(
-        os.path.dirname(GOLDEN), "test_torch_autodiff_support.py"))
-    sup = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sup)
+    sup = _support("test_torch_autodiff_support")
     M6, TRUE_LAG = sup.M6, sup.TRUE_LAG
     out = dict(err={}, launches={})
     for small, nfft, name in ((False, 1 << 14, "K1+K2"), (True, 1 << 12, "cwt_direct")):
@@ -1948,10 +1959,126 @@ def phase_profiling(card, bench_rate):
     return out
 
 
+#: each run of phase_parallel: (run, ranks, backend); and a run's time limit
+PARALLEL_RUNS = (("A", 1, "nccl"), ("B", 4, "gloo"))
+PARALLEL_TIMEOUT = 300
+#: the surfaces whose ranks transform on the card through K1+K2
+PARALLEL_KERNEL_SURFACES = ("cwt", "power_pipeline", "wct", "mc_histogram",
+                            "mc_histogram_pairs", "wct_significance_batch", "wct_pairs",
+                            "wct_matrix", "overlap", "wct_overlap")
+
+
+def parallel_rank(rank, world, backend, out_dir):
+    """``--parallel-rank RANK WORLD BACKEND DIR``: one rank of
+    :func:`phase_parallel` (tests/test_torch_parallel_support.py's
+    ``chip_job``); exits non-zero when a surface misses its bound."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    report = _support("test_torch_parallel_support").chip_job(
+        int(rank), int(world), backend, out_dir)
+    bad = {f"{n}/{k}": e for n, r in report["surfaces"].items()
+           for k, e in r["errs"].items() if not e["ok"]}
+    check(report["imports_clean"], "a rank imported jax or pycwt_tpu")
+    check(not bad, f"rank {rank} of {world} ({backend}): {bad}")
+    log(f"rank {rank} of {world} ({backend}) ok in {report['seconds']:.1f} s")
+
+
+def phase_parallel(card):
+    """pycwt_torch.parallel on the card, in child processes of this script
+    (``--parallel-rank``), each run under a time limit after which every
+    rank is killed by PID.  Run A: one NCCL rank, mesh (1, 1, 1), every
+    sharded surface at its full size against the unsharded port on the card
+    (bit for bit where the same kernels see the same shapes), results saved.
+    Run B: four ranks sharing the card over gloo on CUDA tensors, each
+    rank's block against its slice of run A's results (rtol 2e-5 / atol
+    1e-6 of max for the f32 maps, exact for the Monte-Carlo counts and
+    curves).  Prints each surface's errors, CUDA-event ms (median of 3),
+    K1/K2/K3 launches a call and peak bytes, per rank."""
+    import gc
+    import shutil
+
+    from pycwt_torch.ops import _build
+
+    _build.build_all()                     # the ranks load the built libraries
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "pycwt_torch", "_build", f"parallel-{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    reports = {}
+    t0 = time.perf_counter()
+    try:
+        for run, world, backend in PARALLEL_RUNS:
+            logs = [open(os.path.join(out_dir, f"{run}-rank{r}.log"), "w")
+                    for r in range(world)]
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r),
+                 str(world), backend, out_dir], stdout=logs[r], stderr=subprocess.STDOUT)
+                for r in range(world)]
+            deadline = time.perf_counter() + PARALLEL_TIMEOUT
+            try:
+                for p in procs:
+                    p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                pass
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                for f in logs:
+                    f.close()
+            for r, p in enumerate(procs):
+                if p.returncode != 0:
+                    with open(os.path.join(out_dir, f"{run}-rank{r}.log")) as f:
+                        tail = f.read()[-6000:]
+                    raise AssertionError(f"parallel run {run} rank {r} exited "
+                                         f"{p.returncode}:\n{tail}")
+            reports[run] = [json.load(open(os.path.join(out_dir, f"{run}-rank{r}.json")))
+                            for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out = dict(seconds=time.perf_counter() - t0, runs={})
+    for run, world, backend in PARALLEL_RUNS:
+        label = ("one NCCL rank" if world == 1 else
+                 "4 ranks sharing one H100 over gloo; not a multi-GPU speed")
+        res = out["runs"][run] = {}
+        for name in reports[run][0]["surfaces"]:
+            per = [rep["surfaces"][name] for rep in reports[run]]
+            launches = [r["launches"] for r in per]
+            if name in PARALLEL_KERNEL_SURFACES:
+                check(all(_four_step_only(lc) for lc in launches),
+                      f"parallel {run} {name}: launches {launches}")
+            errs = {k: max(r["errs"][k]["max_abs"] for r in per) for k in per[0]["errs"]}
+            rel = {k: max(r["errs"][k]["max_rel_to_peak"] for r in per) for k in errs}
+            res[name] = dict(mesh=per[0]["mesh"], ms=[r["ms"] for r in per],
+                             ms_runs=[r["ms_runs"] for r in per],
+                             launches=launches[0], peak_bytes=[r["peak_bytes"] for r in per],
+                             max_memory_allocated=[r["max_memory_allocated"] for r in per],
+                             max_abs_err=errs, max_err_of_peak=rel,
+                             exact={k: all(r["errs"][k]["exact"] for r in per) for k in errs},
+                             ratio={k: max(r["errs"][k]["ratio"] for r in per) for k in errs},
+                             phase_wrapped={k: max(r["errs"][k]["wrapped_max_abs"] for r in per)
+                                            for k in errs if k == "A"})
+            log(f"[{card}] parallel run {run} ({label}), {name} on mesh {per[0]['mesh']}: "
+                f"ms per rank {[round(r['ms'], 3) for r in per]} (CUDA events, median of "
+                f"3), K1/K2/K3 launches a call a rank {launches[0]}, peak bytes a rank "
+                f"{[r['peak_bytes'] for r in per]}, max_memory_allocated "
+                f"{[r['max_memory_allocated'] for r in per]}, max |err| {errs}, of max|ref| "
+                f"{rel}, ratio to rtol 2e-5 / atol 1e-6 {res[name]['ratio']}, exact "
+                f"{res[name]['exact']}, wrapped phase {res[name]['phase_wrapped']}")
+        log(f"[{card}] parallel run {run}: rank start-up "
+            f"{[round(r['init_s'], 2) for r in reports[run]]} s, whole rank "
+            f"{[round(r['seconds'], 2) for r in reports[run]]} s")
+    return out
+
+
 def main():
     card = phase_device()
     t0 = time.perf_counter()
     phase_build()
+    par = phase_parallel(card)
     worst, four_step_vs_f64 = phase_kernels_vs_plain()
     large = phase_large_columns()
     phase_public_path()
@@ -2027,6 +2154,9 @@ def main():
                                           else "cwt_stage_a"]
         k["coherence_grad_launches"] = {
             route: counts[name] for route, counts in grad["launches"].items()}
+        k["sharded_launches_per_call_per_rank"] = {
+            run: {srf: r["launches"][name] for srf, r in res.items()}
+            for run, res in par["runs"].items()}
     log(json.dumps({"pipeline_ms": bench["ms_pipe"], "pipeline_device_ms": bench["dev_pipe"],
                     "plain_pipeline_ms": bench["plain_pipe"],
                     "sample_scales_per_s": bench["rate"],
@@ -2071,7 +2201,8 @@ def main():
                     "build_cache": {k: prof[k] for k in (
                         "cache_first_build_s", "cache_first_process_s",
                         "cache_second_process_s", "cache_libs")},
-                    "card": card, "seconds": time.perf_counter() - t0}))
+                    "parallel": par, "card": card,
+                    "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2086,6 +2217,8 @@ if __name__ == "__main__":
         phase_mc_trace()
         phase_pairs_long_trace()
         phase_parity_trace()
+    elif sys.argv[1:2] == ["--parallel-rank"] and len(sys.argv) == 6:
+        parallel_rank(*sys.argv[2:])
     elif sys.argv[1:2] == ["--first-call-trace"] and len(sys.argv) == 3:
         first_call_trace(sys.argv[2])
     elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:

@@ -13,8 +13,9 @@ surfaces (``xwt_pairs``, ``xwt_pairs_planar``, ``wct_pairs``,
 (:mod:`pycwt_torch.ops.overlap`), parity mode on native float64
 (``cwt_twofloat``, ``xwt_twofloat``, ``wct_twofloat``), and the profiling
 and build-cache utilities (:mod:`pycwt_torch.utils.profiling`,
-``utils.enable_compilation_cache``); the multi-device surfaces of
-``pycwt_tpu`` are listed in ``ROADMAP.md``.
+``utils.enable_compilation_cache``), and the multi-device surfaces
+(:mod:`pycwt_torch.parallel`: ``torch.distributed`` ranks over a DeviceMesh,
+``DTensor`` outputs).
 """
 
 from . import mothers, sample  # noqa: F401

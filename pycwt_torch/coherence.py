@@ -477,9 +477,9 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     resident across the pair loop, about ``6·B·S·nfft·itemsize`` bytes at
     the peak.  A request whose resident set exceeds ``max_bytes`` (default
     12 GB) raises before any device allocation: split the station list with
-    ``pairs=``, or raise ``max_bytes`` (an 80 GB H100 holds several times
-    the default).  The multi-device ``sharded_wct_matrix`` is ROADMAP.md
-    queue 1 item 5.
+    ``pairs=``, raise ``max_bytes`` (an 80 GB H100 holds several times
+    the default), or shard the pairs over ranks with
+    :func:`pycwt_torch.parallel.sharded_wct_matrix`.
 
     Parameters
     ----------
@@ -495,7 +495,6 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     ``(P, S, n0)`` and ``pairs`` the ``(P, 2)`` index array used.
     """
     from .api import _host, _resolve_device
-    from .ops.smoothing import smooth_planar_real
 
     device = _resolve_device(device)
     mother = as_mother(wavelet)
@@ -529,18 +528,40 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
             f"signals x {S} scales x nfft={nfft} ({_dtype_name(rdt)})"
             f" exceeds max_bytes={max_bytes / 1e9:.1f} GB. Split the station"
             f" list into sub-blocks via pairs=, use "
-            f"parallel.sharded_wct_matrix over a mesh (ROADMAP.md queue 1 "
-            f"item 5 in pycwt_torch), or raise max_bytes if the device has "
-            f"more memory.")
+            f"pycwt_torch.parallel.sharded_wct_matrix over a mesh, or raise "
+            f"max_bytes if the device has more memory.")
     blk = pair_block if pair_block is not None else _pairs_block(
         P, S, nfft, _itemsize(rdt), planes=48)
     blk = int(min(P, blk))
     y_n = torch.as_tensor(_rows_normalized(y, normalize), dtype=rdt, device=device)
-    scales = torch.as_tensor(sj, dtype=rdt, device=device)
-    pi = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=device)
-    pj = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=device)
+    WCT, aWCT = _wct_matrix_blocks(
+        y_n, torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=device),
+        torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=device),
+        torch.as_tensor(sj, dtype=rdt, device=device), dt, mother=mother,
+        nfft=nfft, dj=dj, engine=config.engine, block=blk,
+        precision=config.precision)
+    coi = coi_bartlett(n0, dt, mother)
+    if not as_numpy:
+        return WCT, aWCT, coi, freqs, pairs
+    return _host(WCT), _host(aWCT), coi, freqs, pairs
 
-    if resolve_engine(config.engine, device, rdt) == "planar":
+
+def _wct_matrix_blocks(yn, pi, pj, scales, dt, *, mother: Mother, nfft: int,
+                       dj: float, engine: str | None, block: int,
+                       precision: str = "high"):
+    """All-pairs coherence core (``pycwt_tpu``'s ``_wct_matrix_scan``): each
+    signal's CWT and self-smoothing are computed once from the normalized
+    ``(B, n0)`` rows ``yn``, then the pairs ``(pi[p], pj[p])`` run in blocks
+    of ``block`` (the last may be shorter), each a gather, its cross
+    spectrum and one cross smoothing.  On the planar route (f32 on the
+    card) the transforms are ``fused_cwt_planar`` (the kernels) and the
+    smoothing runs on planes; the complex route (``cwt_batch`` + ``smooth``)
+    serves f64 and the CPU.  Returns ``(WCT, aWCT)``, each ``(P, S, n0)``
+    on ``yn``'s device."""
+    from .ops.smoothing import smooth_planar_real
+
+    rdt = yn.dtype
+    if resolve_engine(engine, yn.device, rdt) == "planar":
         from .ops.mxu_dft import supported_n
 
         if not supported_n(nfft):
@@ -548,8 +569,8 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
         warn_planar_downcast(rdt)
         scales = scales.to(torch.float32)
         s_col = scales[:, None]
-        wr, wi = _planar_w(y_n, scales, mother=mother, nfft=nfft, dt=dt,
-                           precision=config.precision)
+        wr, wi = _planar_w(yn, scales, mother=mother, nfft=nfft, dt=dt,
+                           precision=precision)
         Sself = smooth_planar_real((wr ** 2 + wi ** 2) / s_col, dt, dj,
                                    scales, mother)
 
@@ -565,41 +586,39 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
             return R2, torch.atan2(w12i, w12r)
     else:
         s_col = scales[:, None]
-        W, _ = cwt_batch(y_n, scales, dt, mother=mother, nfft=nfft, config=config)
-        Sself = smooth(W.abs() ** 2 / s_col, dt, dj, scales, mother,
-                       engine=config.engine)
+        cfg = CWTConfig(dtype=rdt, engine=engine, precision=precision)
+        W, _ = cwt_batch(yn, scales, dt, mother=mother, nfft=nfft, config=cfg)
+        Sself = smooth(W.abs() ** 2 / s_col, dt, dj, scales, mother, engine=engine)
 
         def pair_block_maps(ib, jb):
             W12 = W.index_select(0, ib) * torch.conj(W.index_select(0, jb))
-            S12 = smooth(W12 / s_col, dt, dj, scales, mother, engine=config.engine)
+            S12 = smooth(W12 / s_col, dt, dj, scales, mother, engine=engine)
             R2 = S12.abs() ** 2 / (Sself.index_select(0, ib) * Sself.index_select(0, jb))
             return R2, torch.angle(W12)
 
+    P = pi.shape[0]
     WCT = aWCT = None
-    for b0 in range(0, P, blk):
-        R2, A = pair_block_maps(pi[b0:b0 + blk], pj[b0:b0 + blk])
+    for b0 in range(0, P, block):
+        R2, A = pair_block_maps(pi[b0:b0 + block], pj[b0:b0 + block])
         if WCT is None:
             WCT = R2.new_empty((P,) + R2.shape[1:])
             aWCT = A.new_empty((P,) + A.shape[1:])
-        WCT[b0:b0 + blk] = R2
-        aWCT[b0:b0 + blk] = A
-    coi = coi_bartlett(n0, dt, mother)
-    if not as_numpy:
-        return WCT, aWCT, coi, freqs, pairs
-    return _host(WCT), _host(aWCT), coi, freqs, pairs
+        WCT[b0:b0 + block] = R2
+        aWCT[b0:b0 + block] = A
+    return WCT, aWCT
 
 
 # --------------------------------------------------------------------------
 # Monte-Carlo significance
 # --------------------------------------------------------------------------
 
-def _histogram(R2, outsidecoi, valid=None):
-    """Integer counts of ``clip(floor(R²·NBINS), 0, NBINS−1)`` over the
+def _histogram(R2, outsidecoi, valid=None, nbins: int = NBINS):
+    """Integer counts of ``clip(floor(R²·nbins), 0, nbins−1)`` over the
     cells outside the COI (wavelet.py:628): ``R2`` is ``(..., B, S, n)``,
     ``outsidecoi`` ``(S, n)`` bool and ``valid`` an optional ``(B,)`` member
-    mask; returns ``(..., S, NBINS)`` int64 counts, summed over B.
+    mask; returns ``(..., S, nbins)`` int64 counts, summed over B.
 
-    One ``scatter_add_`` of ones into ``s·NBINS + bin``, with every cell
+    One ``scatter_add_`` of ones into ``s·nbins + bin``, with every cell
     left out sent to one spare slot past the end: no host sync, and the
     counts are exact in any order.  A NaN R² counts in bin 0 and ±inf in
     the end bins, as ``pycwt_tpu``'s int cast puts them (and no index
@@ -607,15 +626,15 @@ def _histogram(R2, outsidecoi, valid=None):
     *lead, _, S, _ = R2.shape
     groups = math.prod(lead)
     dev = R2.device
-    bins = torch.nan_to_num(torch.floor(R2 * NBINS), nan=0.0)
-    bins = bins.clamp_(0, NBINS - 1).to(torch.int64)
-    cell = torch.arange(groups * S, device=dev).view(*lead, 1, S, 1) * NBINS
+    bins = torch.nan_to_num(torch.floor(R2 * nbins), nan=0.0)
+    bins = bins.clamp_(0, nbins - 1).to(torch.int64)
+    cell = torch.arange(groups * S, device=dev).view(*lead, 1, S, 1) * nbins
     keep = outsidecoi if valid is None else outsidecoi & valid[:, None, None]
-    idx = torch.where(keep, cell + bins, groups * S * NBINS).reshape(-1)
-    counts = torch.zeros(groups * S * NBINS + 1, dtype=torch.int64, device=dev)
+    idx = torch.where(keep, cell + bins, groups * S * nbins).reshape(-1)
+    counts = torch.zeros(groups * S * nbins + 1, dtype=torch.int64, device=dev)
     counts.scatter_add_(0, idx, torch.ones((), dtype=torch.int64,
                                            device=dev).expand(idx.numel()))
-    return counts[:-1].view(*lead, S, NBINS)
+    return counts[:-1].view(*lead, S, nbins)
 
 
 def _mc_histogram_chunk(key, start: int, scales, outsidecoi, dt, *,
@@ -848,19 +867,34 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
       uninterrupted run.  Without one, the chunks run back to back on the
       device and the histogram is fetched once.
     * ``device=None`` means the card (it raises without one).
+    * In a process group of several ranks (``pycwt_torch.parallel``), only
+      rank 0 reads and writes the cache and the checkpoint; a hit or a
+      resumed state is broadcast, so every rank returns the same curve.
+      Every rank calls this together.
     """
     from .api import _resolve_device
+    from .parallel.distributed import (host_broadcast_array, is_coordinator,
+                                       process_count)
 
     device = _resolve_device(device)
     mother = as_mother(wavelet)
+    is_coord, multi = is_coordinator(), process_count() > 1
 
     if cache:
         cache_file = _sig_cache_name(al1, al2, dj, s0, dt, J, mother,
                                      mc_count, seed, config, device)
         cache_path = f"{get_cache_dir()}/{cache_file}.gz"
-        cached = _sig_cache_lookup(cache_path, config, device)
+        cached = _sig_cache_lookup(cache_path, config, device) if is_coord else None
         if cached is not None:
             print("NOTE: WCT significance loaded from cache.\n")
+        if multi:
+            cached = np.atleast_1d(cached) if cached is not None else None
+            size = host_broadcast_array(np.array(
+                [-1.0 if cached is None else float(cached.size)]))[0]
+            if size >= 0:
+                cached = host_broadcast_array(
+                    cached if cached is not None else np.zeros(int(size)))
+        if cached is not None:
             return cached
 
     if progress:
@@ -890,7 +924,7 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
         f"{mother!r}|{config.engine}|{_dtype_name(dtype)}".encode()))
     ckpt_meta = np.array([seed, J, float(al1), float(al2), dj,
                           s0, dt, config_tag], dtype=np.float64)
-    if checkpoint is not None:
+    if checkpoint is not None and is_coord:
         try:
             z = np.load(checkpoint)
             if (z["meta"].shape == ckpt_meta.shape
@@ -903,6 +937,10 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
                     print(f"  resumed MC from checkpoint at {done}/{mc_count}")
         except (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile):
             pass   # no, foreign or truncated checkpoint: start afresh
+    if checkpoint is not None and multi:
+        state = host_broadcast_array(np.concatenate([[float(done)], wlc.ravel()]))
+        done = int(state[0])
+        wlc = state[1:].reshape(wlc.shape)
 
     if checkpoint is None:
         nch, tail = divmod(mc_count - done, mc_batch)
@@ -920,10 +958,11 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
         hist = _mc_histogram_chunk(key, done, scales_t, oc, dt, batch=b, **kw)
         wlc += hist.cpu().numpy()
         done += b
-        tmp = f"{checkpoint}.tmp"
-        with open(tmp, "wb") as f:  # exact name (np.savez would append .npz)
-            np.savez(f, meta=ckpt_meta, wlc=wlc, done=np.int64(done))
-        os.replace(tmp, checkpoint)
+        if is_coord:
+            tmp = f"{checkpoint}.tmp"
+            with open(tmp, "wb") as f:  # exact name (np.savez would append .npz)
+                np.savez(f, meta=ckpt_meta, wlc=wlc, done=np.int64(done))
+            os.replace(tmp, checkpoint)
         if progress:
             print(f"  MC surrogates: {done}/{mc_count}", end="\r")
     if progress:
@@ -931,7 +970,7 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
 
     sig95 = mc_significance_from_histogram(wlc, maxscale, significance_level,
                                            outsidecoi_any)
-    if cache:
+    if cache and is_coord:
         _sig_cache_write(cache_path, sig95, config, device)
     return sig95
 
@@ -992,16 +1031,36 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
       and written to the single-pair surface's cache entry; only the
       missing nulls are computed, and each entry name is written once per
       call (pairs with α > 0.25 share one name, as in the reference).
-    * ``mesh`` (multi-device) is not ported: a mesh raises.
+    * **Multi-device** (``mesh``, a ``pycwt_torch.parallel.make_mesh``
+      mesh): the distinct nulls of each block spread over the ranks of
+      ``mesh_axis`` (:func:`pycwt_torch.parallel.sharded_mc_histogram_pairs`,
+      the block rounded up to a multiple of the dim's size) and the counts
+      are gathered on every rank; the curves are bit-identical to the
+      single-device run.  The computation runs on the mesh's device.
+    * In a process group of several ranks, only rank 0 reads the cache;
+      it broadcasts which pairs it holds and their curves before the
+      deduplication, so every rank computes the same nulls, and only it
+      writes.  (``pycwt_tpu`` reads on every process, which lets ranks with
+      different cache contents disagree.)  Every rank calls this together.
     """
     from .api import _resolve_device
+    from .parallel.distributed import (host_broadcast_array, is_coordinator,
+                                       process_count)
 
     if mesh is not None:
-        raise NotImplementedError(
-            "wct_significance_batch(mesh=...) runs on one device in "
-            "pycwt_torch; the multi-device surface is ROADMAP.md queue 1 "
-            "item 5 (multi-device)")
-    device = _resolve_device(device)
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from .parallel._collectives import axis_size, mesh_device
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f"mesh must be a DeviceMesh (pycwt_torch.parallel.make_mesh), got "
+                f"{type(mesh).__name__}")
+        device = mesh_device(mesh) if device is None else torch.device(device)
+        D = axis_size(mesh, mesh_axis)
+    else:
+        device = _resolve_device(device)
+        D = 1
     mother = as_mother(wavelet)
     al1 = np.atleast_1d(np.asarray(al1, np.float64))
     al2 = np.atleast_1d(np.asarray(al2, np.float64))
@@ -1030,11 +1089,16 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
         paths = [f"{cache_dir}/" + _sig_cache_name(
             al1[p], al2[p], dj, s0, dt, J, mother, mc_count, seed, config,
             device) + ".gz" for p in range(P)]
-        for p in range(P):
-            cached = _sig_cache_lookup(paths[p], config, device)
-            if cached is not None:
-                sig[p] = cached
-                have[p] = True
+        if is_coordinator():
+            for p in range(P):
+                cached = _sig_cache_lookup(paths[p], config, device)
+                if cached is not None:
+                    sig[p] = cached
+                    have[p] = True
+        if process_count() > 1:
+            state = host_broadcast_array(np.concatenate([have, sig.ravel()]))
+            have = state[:P] > 0.5
+            sig = state[P:].reshape(sig.shape)
         if have.all():
             if progress:
                 print("NOTE: WCT significance batch loaded from cache.\n")
@@ -1073,8 +1137,12 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
         Pblk = max(1, min(int(pair_block), Pd))
     else:
         Pblk = max(1, min(Pd, 64, members_fit))
+    if D > 1:
+        # Sharded: the block spreads over the mesh dim, so it must divide
+        # by D, and the bytes model bounds one rank's slice of it.
+        Pblk = -(-Pblk // D) * D
     if mc_batch is None:
-        mc_batch = max(1, members_fit // Pblk)
+        mc_batch = max(1, members_fit // max(1, Pblk // D))
     mc_batch = min(int(mc_batch), mc_count)
     nchunks = -(-mc_count // mc_batch)
     # One burn-in for the block, sized for the largest |g| and rounded up to
@@ -1094,6 +1162,17 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
     blocks = []
     for b0 in range(0, Pd + npad, Pblk):
         blk = slice(b0, b0 + Pblk)
+        if D > 1:
+            from .parallel._collectives import gather
+            from .parallel.sharded import sharded_mc_histogram_pairs
+
+            counts = sharded_mc_histogram_pairs(
+                mesh, key, sj_t, oc_t, slots_p[blk], a1p[blk], a2p[blk],
+                mc_count, dt, mother=mother, nfft=nfft, dj=dj, batch=mc_batch,
+                nchunks=nchunks, n=n, tau=tau, engine=config.engine,
+                axis_name=mesh_axis)
+            blocks.append(gather(counts.to_local(), mesh, mesh_axis))
+            continue
         blocks.append(_mc_histogram_run_pairs(
             key, sj_t, oc_t, torch.as_tensor(slots_p[blk], device=device),
             torch.as_tensor(a1p[blk], dtype=dtype, device=device),
@@ -1115,7 +1194,7 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
         if not have[p]:
             sig[p] = sig_d[owner[p]]
 
-    if cache:
+    if cache and is_coordinator():
         # One write per entry name: pairs whose names fold together (every
         # alpha > 0.25) share one file, which takes the last such pair's
         # curve, as the per-pair writes of pycwt_tpu leave it.

@@ -31,8 +31,12 @@ blocked-vs-global differences of order ψ̂(s·Ω_nyq)/t.  Scales with
 or two scales agree to ~1e-2 relative.
 
 Entry points take ``device=None``: a tensor's own device, else the card.
-The time-sharded surfaces (``sharded_cwt_overlap_save``,
-``sharded_wct_overlap_planar``) are ROADMAP.md queue 1 item 5.
+The time-sharded surfaces (:func:`sharded_cwt_overlap_save`,
+:func:`sharded_wct_overlap_planar`) run one ``torch.distributed`` rank per
+device over a ``pycwt_torch.parallel`` mesh: each rank holds a contiguous
+slab of the signal, takes the halo from its neighbours in one exchange
+(zeros at the global edges, the global transform's zero padding), and runs
+the same chunk loop on its slab.
 """
 from __future__ import annotations
 
@@ -54,7 +58,9 @@ __all__ = [
     "cwt_overlap_save_planar",
     "streamed_global_power",
     "streamed_global_power_planar",
+    "sharded_cwt_overlap_save",
     "wct_overlap_planar",
+    "sharded_wct_overlap_planar",
     "xwt_overlap_planar",
 ]
 
@@ -182,6 +188,81 @@ def streamed_global_power(signal, scales, dt: float, *, mother: Mother,
     return acc
 
 
+def _slab_checks(N: int, n_dev: int, chunk: int, H: int, pad_hint: str = "") -> int:
+    """The time-sharded surfaces' validation, on the host before any
+    collective; returns the local slab length."""
+    if N % n_dev:
+        raise ValueError(f"N={N} not divisible by {n_dev} devices{pad_hint}")
+    N_loc = N // n_dev
+    if N_loc % chunk:
+        raise ValueError(f"local slab {N_loc} not a multiple of chunk {chunk}")
+    if H > N_loc:
+        raise ValueError(f"halo {H} exceeds local slab {N_loc}; "
+                         "use fewer shards or a larger slab")
+    return N_loc
+
+
+def _with_halo(slabs: torch.Tensor, mesh, axis_name: str, H: int) -> torch.Tensor:
+    """``(..., N_loc)`` local slabs → ``(..., N_loc + 2H)``: the previous
+    rank's last H samples, the slab, the next rank's first H (zeros at the
+    global edges), in one exchange for all rows."""
+    from ..parallel._collectives import shift
+
+    return shift(slabs.movedim(-1, 0).contiguous(), mesh, axis_name, up=H,
+                 down=H).movedim(0, -1).contiguous()
+
+
+def sharded_cwt_overlap_save(mesh, signal, scales, dt: float, *,
+                             mother: Mother, chunk: int = 1 << 16,
+                             eps: float = 1e-7, engine: str | None = None,
+                             axis_name: str = "data", auto_pad: bool = False):
+    """Time-axis-SHARDED overlap-save CWT over the ``axis_name`` dim of
+    ``mesh`` (every rank passes the same global ``(N,)`` signal and calls
+    this together).
+
+    Each rank owns a contiguous slab of N/n_dev samples (N must divide
+    evenly and the slab must be a multiple of ``chunk``), exchanges
+    ``halo`` edge samples with its neighbours (zeros at the global edges),
+    then runs :func:`cwt_overlap_save`'s chunk loop on its slab with no
+    further communication.  Computes in ``torch.get_default_dtype()``.
+    Returns ``(S, N)`` complex W as a DTensor sharded ``P(None,
+    axis_name)``; the ``(S, N)`` transform never exists on one rank.
+    ``auto_pad`` zero-pads N up to a multiple of ``n_dev·chunk`` and trims
+    the tail: the trimmed map's slabs are uneven, so it comes back
+    replicated on every rank.
+    """
+    from ..parallel._collectives import (axis_size, block, gather, mesh_device,
+                                         to_dtensor)
+
+    rdt = torch.get_default_dtype()
+    H = _halo(scales, dt, mother, eps)
+    x = _on_device(signal, mesh_device(mesh), rdt)
+    sc = torch.as_tensor(scales).to(device=x.device, dtype=rdt)
+    N = x.shape[-1]
+    n_dev = axis_size(mesh, axis_name)
+    if auto_pad:
+        step = n_dev * chunk
+        N_pad = -(-N // step) * step
+        if N_pad != N:
+            W = sharded_cwt_overlap_save(
+                mesh, torch.nn.functional.pad(x, (0, N_pad - N)), sc, dt,
+                mother=mother, chunk=chunk, eps=eps, engine=engine,
+                axis_name=axis_name)
+            full = gather(W.to_local(), mesh, axis_name, axis=1)[:, :N]
+            return to_dtensor(full.contiguous(), mesh, {})
+    N_loc = _slab_checks(N, n_dev, chunk, H, " (pass auto_pad=True to zero-pad)")
+    padded = _with_halo(block(x, mesh, axis_name, 0), mesh, axis_name, H)
+    nfft = next_pow2(chunk + 2 * H)
+    out = None
+    for i in range(N_loc // chunk):
+        W, _ = cwt_batch(_slab(padded, i, chunk, H)[None], sc, dt, mother=mother,
+                         nfft=nfft, engine=engine)
+        if out is None:
+            out = W.new_empty((W.shape[1], N_loc))
+        out[:, i * chunk:(i + 1) * chunk] = W[0, :, H:H + chunk]
+    return to_dtensor(out, mesh, {axis_name: 1})
+
+
 def cwt_overlap_save_planar(signal, scales, dt: float, *, mother: Mother,
                             chunk: int = 1 << 18, eps: float = 1e-7,
                             precision: str = "high", device=None):
@@ -303,6 +384,50 @@ def wct_overlap_planar(y1, y2, scales, dt: float, *, mother: Mother,
         cR[:, i * chunk:(i + 1) * chunk] = R[:, H:H + chunk]
         cA[:, i * chunk:(i + 1) * chunk] = A[:, H:H + chunk]
     return cR[:, :N], cA[:, :N]
+
+
+def sharded_wct_overlap_planar(mesh, y1, y2, scales, dt: float, *,
+                               mother: Mother, dj: float,
+                               chunk: int = 1 << 16, eps: float = 1e-7,
+                               precision: str = "high",
+                               smooth_precision: str | None = None,
+                               normalize: bool = True,
+                               axis_name: str = "data"):
+    """Time-axis-SHARDED blocked coherence: :func:`wct_overlap_planar` with
+    the pair's time axis over the ``axis_name`` dim of ``mesh`` (every rank
+    passes the same global signals and calls this together).
+
+    Each rank owns contiguous slabs of both signals (normalized over the
+    whole signal first), takes the composed wavelet⊗smoothing halo
+    (``2·ζ·s_max``) of the stacked pair from its neighbours in one exchange
+    (zeros at the global edges), and runs the chunk loop on its slab with
+    no further communication, writing each interior in place.  Returns
+    ``(WCT, aWCT)``, each ``(S, N)`` float32 as a DTensor sharded ``P(None,
+    axis_name)``; each shard equals :func:`wct_overlap_planar`'s to f32
+    round-off.
+    """
+    from ..parallel._collectives import axis_size, block, mesh_device, to_dtensor
+
+    if smooth_precision not in (None, "high"):
+        raise ValueError(
+            f"smooth_precision must be None or 'high', got {smooth_precision!r}")
+    H = _halo(scales, dt, mother, eps, factor=2, chunk=chunk)
+    y1, y2 = _signal_pair(y1, y2, mesh_device(mesh), normalize,
+                          "sharded_wct_overlap_planar")
+    sc = torch.as_tensor(scales).to(device=y1.device, dtype=torch.float32)
+    N_loc = _slab_checks(y1.shape[-1], axis_size(mesh, axis_name), chunk, H)
+    padded = _with_halo(block(torch.stack([y1, y2]), mesh, axis_name, 1), mesh,
+                        axis_name, H)
+    nfft = next_pow2(chunk + 2 * H)
+    cR = torch.empty((sc.shape[0], N_loc), dtype=torch.float32, device=y1.device)
+    cA = torch.empty_like(cR)
+    for i in range(N_loc // chunk):
+        R, A = _wct_chunk_pipeline(_slab(padded[0], i, chunk, H),
+                                   _slab(padded[1], i, chunk, H),
+                                   sc, mother, nfft, dt, dj, precision)
+        cR[:, i * chunk:(i + 1) * chunk] = R[:, H:H + chunk]
+        cA[:, i * chunk:(i + 1) * chunk] = A[:, H:H + chunk]
+    return to_dtensor(cR, mesh, {axis_name: 1}), to_dtensor(cA, mesh, {axis_name: 1})
 
 
 def xwt_overlap_planar(y1, y2, scales, dt: float, *, mother: Mother,

@@ -20,10 +20,17 @@ from pycwt_torch.ops import mxu_dft
 
 torch.set_num_threads(2)
 
-#: port module -> pycwt_tpu module, where the names differ
-MODULE_OF = {"pycwt_torch.ops.fused_cwt": "pycwt_tpu.ops.pallas_fft"}
-#: (module, function) -> parameters only the port has (besides ``device``)
-PORT_ONLY = {("pycwt_torch.ops.fft", "resolve_engine"): {"dtype"}}
+#: port module -> pycwt_tpu module (the rest map by package name)
+MODULE_OF = {"pycwt_torch.ops.fused_cwt": "pycwt_tpu.ops.pallas_fft",
+             **{f"pycwt_torch.parallel.{m}": f"pycwt_tpu.parallel.{m}"
+                for m in ("mesh", "distributed", "sharded", "dist_fft")}}
+#: (module, function) -> parameters only the port has (besides ``device``):
+#: the process group's device and backend, and the mesh that the JAX
+#: package's sharded smoothing finds in its enclosing shard_map
+PORT_ONLY = {("pycwt_torch.ops.fft", "resolve_engine"): {"dtype"},
+             ("pycwt_torch.parallel.distributed", "initialize"): {"device", "backend"},
+             ("pycwt_torch.ops.smoothing", "scale_boxcar_same_sharded"): {"mesh"},
+             ("pycwt_torch.ops.smoothing", "smooth_scale_sharded"): {"mesh"}}
 #: (module, function) -> pycwt_tpu parameters the port dropped: the
 #: smoothing precision (its planar smoothing has one f32/f64 product)
 JAX_ONLY = {("pycwt_torch.ops.smoothing", "smooth_planar_pair"): {"precision"},
@@ -93,6 +100,17 @@ def test_public_signatures_match_pycwt_tpu():
     for fn in ("trace", "log_sharding"):
         assert ("pycwt_torch.utils.profiling", fn) in names
     assert ("pycwt_torch.utils.helpers", "enable_compilation_cache") in names
+    for fn in ("sharded_cwt_overlap_save", "sharded_wct_overlap_planar"):
+        assert ("pycwt_torch.ops.overlap", fn) in names
+    for fn in ("scale_boxcar_same_sharded", "smooth_scale_sharded"):
+        assert ("pycwt_torch.ops.smoothing", fn) in names
+    assert {"make_mesh", "initialize", "is_coordinator", "host_broadcast_array",
+            "pad_scales", "sharded_cwt", "sharded_power_pipeline", "sharded_wct",
+            "sharded_wct_pairs", "sharded_wct_matrix", "sharded_mc_histogram",
+            "sharded_mc_histogram_pairs", "sharded_dft", "sharded_idft",
+            "sharded_dft_planar", "sharded_cwt_spectral",
+            "sharded_cwt_spectral_planar"} <= {n for m, n in names
+                                               if m.startswith("pycwt_torch.parallel.")}
     used = set()
     mismatches = []
     for mod, name, tfn, jfn in shared:

@@ -537,7 +537,10 @@ def test_batch_writes_each_cache_name_once(tmp_path, monkeypatch):
 
 
 def test_wct_significance_batch_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    """mesh= takes a DeviceMesh of pycwt_torch.parallel (the sharded runs
+    are in tests/test_torch_sharding.py and tests/test_torch_multihost.py);
+    anything else raises before any work."""
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh"):
         tco.wct_significance_batch([0.3], [0.4], mesh=object(), **SMALL)
 
 
