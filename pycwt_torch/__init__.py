@@ -15,7 +15,9 @@ surfaces (``xwt_pairs``, ``xwt_pairs_planar``, ``wct_pairs``,
 and build-cache utilities (:mod:`pycwt_torch.utils.profiling`,
 ``utils.enable_compilation_cache``), and the multi-device surfaces
 (:mod:`pycwt_torch.parallel`: ``torch.distributed`` ranks over a DeviceMesh,
-``DTensor`` outputs).
+``DTensor`` outputs), and the example workflows
+(:mod:`pycwt_torch.examples`: ``python -m pycwt_torch.examples.sample_cwt``,
+``.sample_xwt``, ``.sample_network``).
 """
 
 from . import mothers, sample  # noqa: F401

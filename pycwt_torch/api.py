@@ -81,7 +81,8 @@ def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     ``output="planes"`` returns ``(wr, wi, sj, freqs, coi)`` with each plane
     ``(n_scales, n0)`` f32; ``output="power"`` returns ``(power, sj, freqs,
     coi)`` with |W|² written by the kernel's epilogue.  Needs a pow-2
-    ``nfft``; computes in f32 whatever ``config.dtype`` says."""
+    ``nfft``; the transform runs in f32 whatever ``config.dtype`` says, from
+    the host signal's spectrum taken in f64 and rounded to f32 planes."""
     from .ops.fused_cwt import fused_cwt_planar
     from .ops.mxu_dft import fft_of_real_planar
 
@@ -96,8 +97,11 @@ def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
                                             nfft, dt)
     coi = coi_bartlett(n0, dt, mother)
 
-    x = torch.as_tensor(signal, dtype=torch.float32, device=device)
-    sr, si = fft_of_real_planar(x, nfft)
+    # An f32 FFT errs by ~1e-7 of the signal's norm in every bin; at the small
+    # scales of a record whose spectrum falls steeply (a trend, as Mauna Loa's
+    # CO2) that is most of the bins' own size.  In f64 each bin is rounded once.
+    x = torch.as_tensor(signal, dtype=torch.float64, device=device)
+    sr, si = (p.float() for p in fft_of_real_planar(x, nfft))
     out = fused_cwt_planar(
         sr, si, torch.as_tensor(sj, dtype=torch.float32, device=device),
         mother=mother, nfft=nfft, dt=float(dt), precision=config.precision,

@@ -3,7 +3,9 @@ on the CPU: every single-device test of tests/test_overlap.py at its own
 bound, and each surface against pycwt_tpu's on the same input (complex
 surfaces 1e-10 of max|W|, planar ones 2e-5 of max, the blocked coherence
 2e-4 absolute).  Also DOG's float32 spectral envelope, which overflowed
-where f^m does."""
+where f^m does, and the blocked coherence's phase at large N against the
+JAX package's on the same inputs (``phase_figures``; run as ``python -m
+tests.test_torch_overlap N [S CHUNK]`` to print them at another size)."""
 import warnings
 
 import numpy as np
@@ -210,6 +212,61 @@ def test_wct_overlap_planar_matches_global_core_and_jax(f64):
     np.testing.assert_allclose(R.numpy(), np.asarray(Rj), rtol=0, atol=2e-4)
 
 
+def phase_figures(N: int, S: int = 64, chunk: int = 1 << 18, seed: int = 0) -> dict:
+    """Each package's blocked WCT phase against its own global planar core,
+    as tests/test_overlap.py:209-240 holds it, on the same seeded f32 pair
+    (x, 0.5·x + noise), S scales 2·2^(j/8), dj 1/8, compared for s ≥ 4dt
+    beyond the composed halo: the largest wrapped phase error where R² > 0.2
+    (the JAX test's mask, ``"<pkg>_R2"``) and where also |W12| > 1e-3 of its
+    max (``"<pkg>_R2_W12"``)."""
+    from pycwt_torch.coherence import _wct_core
+    from pycwt_tpu.coherence import _wct_core as jcore
+
+    sj = (2.0 * 2.0 ** (np.arange(S) / 8.0)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    y1 = rng.standard_normal(N).astype(np.float32)
+    y2 = (0.5 * y1 + rng.standard_normal(N)).astype(np.float32)
+    n1, n2 = ((y - y.mean()) / y.std() for y in (y1, y2))
+    H = tov.halo_samples(float(sj.max()), 1.0)
+    rows, cols = sj >= 4.0, slice(2 * H, N - 2 * H)
+
+    def figures(R, A, Rg, Ag, W12r, W12i):
+        A, Rg, Ag = (np.asarray(v, np.float64)[rows][:, cols] for v in (A, Rg, Ag))
+        g12 = np.hypot(np.asarray(W12r), np.asarray(W12i))[rows][:, cols]
+        dphi = np.abs(np.angle(np.exp(1j * (A - Ag))))
+        m = Rg > 0.2
+        return float(dphi[m].max()), float(dphi[m & (g12 > 1e-3 * g12.max())].max())
+
+    kw = dict(dj=1 / 8, chunk=chunk)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")    # the near-Nyquist warning of s < 4dt
+        R, A = tov.wct_overlap_planar(y1, y2, sj, 1.0, mother=M6, **kw, **CPU)
+        Rj, Aj = jov.wct_overlap_planar(y1, y2, jnp.asarray(sj), 1.0, mother=J6, **kw)
+    Rg, Ag, (gr, gi) = _wct_core(torch.tensor(n1)[None], torch.tensor(n2)[None],
+                                 torch.tensor(sj), 1.0, mother=M6, nfft=N, dj=1 / 8,
+                                 engine="planar")
+    Rjg, Ajg, (jr, ji) = jcore(jnp.asarray(n1)[None], jnp.asarray(n2)[None],
+                               jnp.asarray(sj), 1.0, mother=J6, nfft=N, dj=1 / 8,
+                               engine="planar")
+    out = {}
+    out["torch_R2"], out["torch_R2_W12"] = figures(R, A, Rg[0], Ag[0], gr[0], gi[0])
+    out["jax_R2"], out["jax_R2_W12"] = figures(Rj, Aj, Rjg[0], Ajg[0], jr[0], ji[0])
+    return out
+
+
+def test_blocked_wct_phase_at_large_n_is_shared_with_jax():
+    """Where R² > 0.2 alone, the blocked WCT's phase misses 2e-3 at large N
+    in both packages: the angle of an unsmoothed W12 near zero is f32 noise
+    in either.  At N = 2^16, 64 scales, chunk 2^14 the port's figure is no
+    more than twice pycwt_tpu's on the same inputs (on the CPU the JAX
+    package's is the larger, ~14×), and both hold 2e-3 where |W12| is not
+    near zero."""
+    fig = phase_figures(1 << 16, chunk=1 << 14)
+    assert fig["torch_R2"] <= 2 * fig["jax_R2"], fig
+    assert fig["jax_R2"] > 2e-3, fig
+    assert fig["torch_R2_W12"] < 2e-3 and fig["jax_R2_W12"] < 2e-3, fig
+
+
 @pytest.mark.parametrize("smooth_precision", [None, "high"])
 def test_wct_overlap_planar_smooth_precision_runs_one_product(smooth_precision):
     """Both accepted tiers run the same f32 band product; anything else
@@ -336,3 +393,12 @@ def test_dog6_cwt_at_nfft_2p20_is_finite_in_f32():
     scale = float(torch.sqrt(rr ** 2 + ri ** 2).max())
     err = max(float((wr.double() - rr).abs().max()), float((wi.double() - ri).abs().max()))
     assert err <= 2e-4 * scale
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu python -m tests.test_torch_overlap N [S CHUNK]:
+    # phase_figures at a size of one's choosing (2^20, 64, 2^18 takes ~4 min
+    # and ~6 GB on a CPU).
+    import sys
+
+    print(phase_figures(*(int(a) for a in sys.argv[1:])))

@@ -1047,6 +1047,9 @@ def imports_clean() -> bool:
     """True when importing the whole port left JAX and ``pycwt_tpu`` out."""
     import pycwt_torch  # noqa: F401
     import pycwt_torch.analysis  # noqa: F401
+    import pycwt_torch.examples.sample_cwt  # noqa: F401
+    import pycwt_torch.examples.sample_network  # noqa: F401
+    import pycwt_torch.examples.sample_xwt  # noqa: F401
     import pycwt_torch.ops.overlap  # noqa: F401
     import pycwt_torch.ops.twofloat  # noqa: F401
     import pycwt_torch.parallel  # noqa: F401

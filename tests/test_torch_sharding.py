@@ -77,15 +77,45 @@ def test_sharded_cwt_matches_single_device(ranks, workload, spec):
     np.testing.assert_allclose(ft, np.fft.fft(X, n=nfft), atol=1e-12 * np.abs(ft).max())
 
 
+def _jax_sharded_cwt(X, sj_pad, nfft, spec):
+    """``pycwt_tpu``'s ``sharded_cwt`` with JAX's caches cleared before and
+    after.  It jits ``cwt_batch`` with ``dt`` traced into that function's
+    static argument, so a second trace on an equal mesh in one process
+    compares two tracers for equality and raises.  Without the clearing, a
+    worker that runs this file and ``tests/test_sharding.py`` (the same three
+    meshes) fails whichever of them runs second."""
+    jax.clear_caches()
+    try:
+        Wj, _ = jsh.sharded_cwt(jmake_mesh(JMeshSpec(*spec)), jnp.asarray(X),
+                                jnp.asarray(sj_pad), DT, mother=JMOTHER, nfft=nfft)
+        return np.asarray(Wj)
+    finally:
+        jax.clear_caches()
+
+
 @pytest.mark.parametrize("spec", SPECS_CWT, ids=sup.spec_name)
 def test_sharded_cwt_matches_jax(ranks, workload, spec):
     X, sj, _, nfft = workload
     sj_pad, S = pad_scales(sj, spec[1])
-    Wj, _ = jsh.sharded_cwt(jmake_mesh(JMeshSpec(*spec)), jnp.asarray(X),
-                            jnp.asarray(sj_pad), DT, mother=JMOTHER, nfft=nfft)
-    Wj = np.asarray(Wj)
+    Wj = _jax_sharded_cwt(X, sj_pad, nfft, spec)
     W = assemble(ranks, f"cwt/{sup.spec_name(spec)}")
     assert np.abs(W - Wj).max() < 1e-12 * np.abs(Wj).max()
+
+
+@pytest.mark.parametrize("spec", SPECS_CWT, ids=sup.spec_name)
+def test_jax_reference_leaves_sharded_cwt_callable(workload, spec):
+    """After this file's JAX reference, ``pycwt_tpu``'s ``sharded_cwt`` on
+    the same mesh runs again in this process, as ``tests/test_sharding.py``
+    calls it, and gives the same transform."""
+    X, sj, _, nfft = workload
+    sj_pad, _ = pad_scales(sj, spec[1])
+    first = _jax_sharded_cwt(X, sj_pad, nfft, spec)
+    try:
+        again, _ = jsh.sharded_cwt(jmake_mesh(JMeshSpec(*spec)), jnp.asarray(X),
+                                   jnp.asarray(sj_pad), DT, mother=JMOTHER, nfft=nfft)
+        np.testing.assert_array_equal(np.asarray(again), first)
+    finally:
+        jax.clear_caches()
 
 
 def _power_refs(X, sj, nfft):
