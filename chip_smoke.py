@@ -45,7 +45,14 @@ just after:
   ``sample_network`` on 8 stations) at their defaults, each ``run(...)`` on
   both kernel routes against the CPU f64 port and the goldens, timed cold
   and warm, ``sample_xwt.run`` traced, then each script once as a child
-  process.
+  process;
+* the forward-spectrum rule and the matmul pin (``phase_repairs``): the
+  five records' |W|² through ``cwt`` (and Mauna Loa's through
+  ``cwt_batch`` and one-rank ``sharded_cwt``) and the 8-station network's
+  maps against the CPU f64 port, the MC curve bit for bit across
+  ``mc_batch`` 1/7/64/300 and ``pair_block``, the WCT, the MC curve, the
+  32-station maps and a coherence gradient bit for bit under TF32 and
+  bf16 process settings, and the f64 spectrum's device cost.
 
 K1 and K2 are checked at every column radix plan from 16 to 2048 points
 (nfft 2^8 to 2^22), and lightly at 4096 and 8192 (2^24, 2^26).  It times K1
@@ -59,8 +66,9 @@ the 4,000-point WCT and a 300-member Monte-Carlo run on both routes, the
 32-station ``wct_matrix`` and ``wct_matrix_analysis``, two overlap-save
 surfaces at N = 2^24, parity mode's 2^20 × 64 f64 transform and one cold
 and one warm ``sample_xwt.run`` on each route instead;
-``--ab PARENT`` times the 4,000-point WCT and its smoothing for an unpacked
-parent tree and this one in turns.  Any failure raises:
+``--ab PARENT`` times the 4,000-point WCT and its smoothing, the
+300-member MC run and the 2^24 overlap-save CWT for an unpacked parent tree
+and this one in turns.  Any failure raises:
 the exit code is then non-zero and no ``ok`` line is printed.  Without a
 CUDA device it exits non-zero at once.
 """
@@ -156,12 +164,14 @@ def _device_rows(prof, calls, required=True):
     return rows
 
 
-def device_ms(fn, calls=50, warmup=3, tries=3):
+def device_ms(fn, calls=50, warmup=3, tries=3, floor=0.0):
     """Device time of one call of ``fn()``: the kernel times that
     torch.profiler (CUPTI) records over ``calls`` calls, summed, per call.
     At these sizes a CUDA-event time around a call is mostly host time.  A
     profile that recorded no device activity at all (seen once in a few
-    hundred on the H100) is taken again, up to ``tries`` times."""
+    hundred on the H100), or less than ``floor`` ms a call (the work's
+    bound: the profile lost kernels), is taken again, up to ``tries``
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -172,9 +182,13 @@ def device_ms(fn, calls=50, warmup=3, tries=3):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        rows = _device_rows(prof, calls, required=attempt == tries - 1)
-        if rows:
-            return sum(r[0] for r in rows)
+        last = attempt == tries - 1
+        rows = _device_rows(prof, calls, required=last)
+        ms = sum(r[0] for r in rows)
+        check(ms >= floor or not last,
+              f"the profiler recorded {ms} ms a call, below the bound {floor} ms")
+        if rows and ms >= floor:
+            return ms
 
 
 def _reset_counts():
@@ -674,9 +688,12 @@ def phase_wct_timing():
     """``--time-wct TREE``: the 4,000-point ``_wct_core`` on both routes and
     its smoothing (``smooth_planar_pair`` on two (1, 133, 4000) planes, and
     the scale boxcar alone on the complex field), by CUDA events and device
-    time, for the ``pycwt_torch`` of the tree on ``sys.path``; one JSON
-    line."""
+    time, then the 300-member MC run (default route, median of 5) and
+    ``cwt_overlap_save_planar`` at 2^24 × 64 scales (median of 3), for the
+    ``pycwt_torch`` of the tree on ``sys.path``; one JSON line."""
     import pycwt_torch as pt
+    from pycwt_torch import coherence as tco
+    from pycwt_torch.ops import overlap as tov
     from pycwt_torch.ops import smoothing as sm
 
     _, sj, core_call = _wct_core_inputs(*_wct_pair())
@@ -696,6 +713,16 @@ def phase_wct_timing():
             ("boxcar", lambda: sm.scale_boxcar_same(T, win))):
         out[name + "_ms"] = time_ms(fn, runs=21, warmup=3)
         out[name + "_device_ms"] = device_ms(fn, calls=20)
+    del T, Ta, Tb
+    _, al1, al2, kw = _mc_args()
+    mc = dict(mc_count=MC_COUNT, seed=MC_SEED, cache=False, progress=False, **kw)
+    out["mc_300_members_ms"] = time_ms(lambda: tco.wct_significance(al1, al2, **mc),
+                                       runs=5, warmup=1)
+    x = torch.randn(LONG_TIME_N, generator=gen, device="cuda")
+    lsj = torch.tensor(2.0 * 2.0 ** (np.arange(LONG_S) / 8.0), dtype=torch.float32,
+                       device="cuda")
+    out["overlap_2p24_ms"] = time_ms(lambda: tov.cwt_overlap_save_planar(
+        x, lsj, 1.0, mother=pt.Morlet(6), chunk=LONG_CHUNK), runs=3, warmup=1)
     log("WCT timing " + json.dumps(out))
     return out
 
@@ -798,7 +825,10 @@ def phase_real_size():
     tol = TIER_BOUND["highest"] * float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).max())
     check(err <= tol, f"cwt_direct at the WCT shape: {err} > {tol}")
     del got, ref
-    ms_direct = device_ms(lambda: fc.cwt_direct(sr, si, sj, **kw))
+    K = nfft // 2
+    nbytes, ops = _direct_bound(2, S, K, nfft)
+    bound, by = _bound_ms(nbytes, ops)
+    ms_direct = device_ms(lambda: fc.cwt_direct(sr, si, sj, **kw), floor=bound)
     wall_ms = time_ms(lambda: fc.cwt_direct(sr, si, sj, **kw))
     ms_four = device_ms(lambda: fc.stage_b(*fc.stage_a(sr, si, sj, **kw), nfft=nfft,
                                            output="planes"))
@@ -806,9 +836,6 @@ def phase_real_size():
     prod = _filtered_product(*fft_of_real_planar(x, nfft), sj, mother, nfft, dt)
     lib_ms = device_ms(lambda: torch.fft.ifft(prod, dim=-1))
     del prod
-    K = nfft // 2
-    nbytes, ops = _direct_bound(2, S, K, nfft)
-    bound, by = _bound_ms(nbytes, ops)
     log(f"cwt_direct bound at B=2 S={S} K={K} N={nfft}: {bound:.4f} ms ({by}; "
         f"{nbytes:.4e} bytes, {ops:.4e} flops on the FFT route)")
     log(f"4,000-point WCT pair (nfft 4096, {S} scales): routes agree {agree:.3e}; "
@@ -2184,6 +2211,248 @@ def phase_examples(card):
     return out
 
 
+#: the caller settings of tests/test_torch_matmul_pin_support.py that reach
+#: cuBLAS: the legacy setter, the legacy cuBLAS flag, the newer fp32_precision
+CARD_CALLERS = ("high", "medium", "allow_tf32", "fp32_precision_cuda_tf32")
+
+
+def _cwt_power_errs(card):
+    """|W|² of the five records through the public ``cwt`` on the card
+    against the CPU f64 port; Mauna Loa's also through ``cwt_batch`` (f64
+    and f32 rows) and ``sharded_cwt`` on a one-rank mesh."""
+    import pycwt_torch as pt
+    from pycwt_torch.config import CWTConfig
+    from pycwt_torch.examples.sample_cwt import DATASETS
+    from pycwt_torch.sample import load
+    from pycwt_torch.transform import build_scale_grid, cwt_batch, drop_reference_nan_rows
+
+    errs = {}
+    for name in DATASETS:
+        ds = load(name)
+        x = (ds.values - ds.values.mean()) / ds.values.std()
+        ref = np.abs(pt.cwt(x, ds.dt, config=CWTConfig(dtype=torch.float64),
+                            device="cpu")[0]) ** 2
+        errs[f"{name} cwt"] = rel_err(np.abs(pt.cwt(x, ds.dt)[0]) ** 2, ref)
+        if name != "mauna":
+            continue
+        M6, nfft = pt.Morlet(6), 1 << (len(x) - 1).bit_length()
+        grid = build_scale_grid(len(x), ds.dt, mother=M6)
+        sj, _ = drop_reference_nan_rows(M6, grid.sj, grid.freqs, nfft, ds.dt)
+        sc = torch.tensor(sj, device="cuda")
+        for dtype in (torch.float64, torch.float32):
+            rows = torch.tensor(x[None], dtype=dtype, device="cuda")
+            W, _ = cwt_batch(rows, sc, ds.dt, mother=M6, nfft=nfft)
+            errs[f"mauna cwt_batch {str(dtype)[6:]} rows"] = rel_err(
+                (W[0].abs() ** 2).cpu().numpy(), ref)
+        # f32 rows: the sharded surfaces compute in their rows' dtype
+        Ws = _one_rank_sharded(rows, sc, ds.dt, nfft)
+        check(torch.equal(Ws, W), "one-rank sharded_cwt differs from cwt_batch")
+        errs["mauna sharded_cwt (one rank, f32 rows)"] = rel_err(
+            (Ws[0].abs() ** 2).cpu().numpy(), ref)
+    for what, err in errs.items():
+        check(err < CWT_BOUND, f"{what}: |W|² {err} >= {CWT_BOUND}")
+    log(f"[{card}] |W|² against the CPU f64 port (bound {CWT_BOUND}): " + ", ".join(
+        f"{k} {v:.3e} ({CWT_BOUND / v:.1f}x margin)" for k, v in errs.items()))
+    return errs
+
+
+def _one_rank_sharded(rows, sc, dt, nfft):
+    """On a one-rank NCCL mesh: ``sharded_cwt`` of ``rows`` (its local W,
+    returned), and ``sharded_wct_matrix`` on the 8-station network's
+    normalized f32 rows bit for bit against ``wct_matrix`` on the same rows
+    (both run ``_wct_matrix_blocks``)."""
+    import torch.distributed as dist
+
+    import pycwt_torch as pt
+    from pycwt_torch.examples.sample_network import make_network
+    from pycwt_torch.parallel import distributed, make_mesh, sharded_cwt, sharded_wct_matrix
+    from pycwt_torch.transform import build_scale_grid
+
+    M6 = pt.Morlet(6)
+    y = torch.tensor(make_network(), dtype=torch.float32, device="cuda")
+    yn = (y - y.mean(-1, keepdim=True)) / y.std(-1, correction=0, keepdim=True)
+    pairs = np.array([(i, j) for i in range(8) for j in range(i + 1, 8)])
+    R, A, _, _, _ = pt.wct_matrix(yn.cpu().numpy(), 1.0, normalize=False, pairs=pairs,
+                                  pair_block=4, as_numpy=False)
+    mesh = make_mesh()
+    try:
+        Ws, _ = sharded_cwt(mesh, rows, sc, dt, mother=M6, nfft=nfft)
+        Rs, As = sharded_wct_matrix(mesh, y, pairs, build_scale_grid(512, 1.0).sj, 1.0,
+                                    1 / 12, mother=M6, nfft=512, block=4)
+        Ws, Rs, As = Ws.to_local(), Rs.to_local(), As.to_local()
+    finally:
+        dist.destroy_process_group()
+        distributed._GROUP_DEVICE.clear()
+    check(_bitwise(Rs, R) and _bitwise(As, A),
+          "one-rank sharded_wct_matrix differs from wct_matrix on the same rows")
+    return Ws
+
+
+def _network_errs(card):
+    """sample_network's coherence maps on both kernel routes against the
+    CPU f64 port, and their margin to the 1e-3 bound."""
+    import pycwt_torch as pt
+    from pycwt_torch.config import CWTConfig
+    from pycwt_torch.examples.sample_network import make_network
+
+    y = make_network()
+    ref = pt.wct_matrix(y, 1.0, config=CWTConfig(dtype=torch.float64), device="cpu")[0]
+    errs = {}
+    for small in (False, True):
+        with _route(small):
+            errs["cwt_direct" if small else "default"] = rel_err(
+                pt.wct_matrix(y, 1.0)[0], ref)
+    for route, err in errs.items():
+        check(err < WCT_BOUND, f"network maps, route {route}: {err} >= {WCT_BOUND}")
+    log(f"[{card}] sample_network maps against the CPU f64 port (bound {WCT_BOUND}): "
+        + ", ".join(f"{k} {v:.3e} ({100 * (1 - v / WCT_BOUND):.1f} % to spare)"
+                    for k, v in errs.items()))
+    return errs
+
+
+def _bitwise(a, b):
+    """The same bits, NaN where NaN."""
+    return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a[~a.isnan()],
+                                                                  b[~b.isnan()]))
+
+
+def _pinned_results():
+    """The surfaces whose f32 products the pin covers, on both kernel
+    routes: the 4,000-point _wct_core, the 300-member MC curve, the
+    32-station wct_matrix maps (unfetched) and the gradient of the
+    4,000-point coherence."""
+    import pycwt_torch as pt
+    from pycwt_torch import coherence as tco
+
+    ys, sj, core_call = _wct_core_inputs(*_wct_pair())
+    _, al1, al2, kw = _mc_args()
+    mc = dict(mc_count=MC_COUNT, seed=MC_SEED, cache=False, progress=False, **kw)
+    stations = _stations()
+    out = {}
+    for small in (False, True):
+        route = "cwt_direct" if small else "default"
+        with _route(small):
+            R, A, _ = core_call()
+            out[f"_wct_core R2 {route}"], out[f"_wct_core phase {route}"] = R, A
+            out[f"MC curve {route}"] = torch.tensor(tco.wct_significance(al1, al2, **mc))
+            out[f"wct_matrix {route}"] = pt.wct_matrix(stations, PAIRS_DT,
+                                                       as_numpy=False)[0]
+            a = ys[0].clone().requires_grad_(True)
+            R, _, _ = tco._wct_core(a, ys[1], sj, 1.0, mother=pt.Morlet(6), nfft=4096,
+                                    dj=1 / 12)
+            out[f"gradient {route}"] = torch.autograd.grad(R.mean(), a)[0]
+    return out
+
+
+def _spectrum_cost(card):
+    """Device ms of the f64 spectrum (``_spectrum_f64`` rounded to f32
+    planes, as ``_planar_cwt_of_real`` takes it) against the f32 rFFT it
+    replaced (``fft_of_real_planar``), and of the whole ``_planar_cwt_of_real``
+    call beside them: at the MC chunk (300 rows, nfft 1024, 76 scales), an
+    overlap-save chunk (one row, nfft 2^19, 64 scales) and 2^20 × 1 (64
+    scales)."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops.fft import _spectrum_f64
+    from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+
+    n_mc, nfft_mc, sc_mc, _, _ = _mc_chunk_inputs()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sc64 = torch.tensor(2.0 * 2.0 ** (np.arange(64) / 8.0), dtype=torch.float32,
+                        device="cuda")
+    shapes = {"MC chunk (300, 1024)": (300, n_mc, nfft_mc, sc_mc),
+              "overlap chunk (1, 2^19)": (1, 1 << 19, 1 << 19, sc64),
+              "2^20 x 1": (1, 1 << 20, 1 << 20, sc64)}
+    out = {}
+    for what, (B, n, nfft, sc) in shapes.items():
+        x = torch.randn((B, n), generator=gen, device="cuda")
+
+        def f64_planes():
+            spec = _spectrum_f64(x, nfft)
+            return spec.real.contiguous(), spec.imag.contiguous()
+
+        r = out[what] = dict(
+            f64_ms=device_ms(f64_planes, calls=20),
+            f32_ms=device_ms(lambda: fft_of_real_planar(x, nfft), calls=20),
+            cwt_ms=device_ms(lambda: fc._planar_cwt_of_real(
+                x, sc, mother=pt.Morlet(6), nfft=nfft, dt=1.0), calls=10),
+            scales=int(sc.shape[0]))
+        r["share"] = (r["f64_ms"] - r["f32_ms"]) / r["cwt_ms"]
+        log(f"[{card}] spectrum at {what}: f64 rounded to f32 planes {r['f64_ms']:.4f} ms "
+            f"against the f32 rFFT {r['f32_ms']:.4f} ms (device time per call); the "
+            f"whole _planar_cwt_of_real ({r['scales']} scales) {r['cwt_ms']:.4f} ms, of "
+            f"which the f64 spectrum adds {100 * r['share']:.2f} %")
+    return out
+
+
+def phase_repairs(card, real, mc, long):
+    """The one forward-spectrum rule and the matmul pin on the card.
+
+    The f64 spectrum: the five records' |W|² through the public ``cwt``
+    (Mauna Loa also through ``cwt_batch`` and one-rank ``sharded_cwt``)
+    within 5e-3 of the CPU f64 port, sample_network's maps on both routes
+    within 1e-3, one-rank ``sharded_cwt`` and ``sharded_wct_matrix`` bit for
+    bit with the unsharded port on the same rows, the MC curve bit for bit
+    across ``mc_batch`` 1/7/64/300 and ``pair_block``, and the spectrum's
+    device cost.  The pin: under each of CARD_CALLERS the 4,000-point
+    ``_wct_core`` and its gradient, the 300-member MC curve and the
+    32-station maps, on both kernel routes, bit for bit against the
+    default-setting run, the caller's setting read back unchanged after the
+    calls, and the process's setting restored at the end."""
+    from pycwt_torch import coherence as tco
+
+    t_phase = time.perf_counter()
+    out = dict(cwt_errs=_cwt_power_errs(card), network_errs=_network_errs(card))
+
+    _, al1, al2, kw = _mc_args()
+    mc_kw = dict(mc_count=MC_COUNT, seed=MC_SEED, cache=False, progress=False, **kw)
+    curves = {b: tco.wct_significance(al1, al2, mc_batch=b, **mc_kw)
+              for b in (300, 64, 7, 1)}
+    check(all(np.array_equal(c, curves[300], equal_nan=True) for c in curves.values()),
+          "MC curve changes with mc_batch on the f64 spectrum")
+    batch = {(b, p): tco.wct_significance_batch([al1, 0.3], [al2, 0.5], mc_batch=b,
+                                                pair_block=p, **mc_kw)
+             for b, p in ((300, 2), (64, 1), (7, 2))}
+    first = next(iter(batch.values()))
+    check(all(np.array_equal(c, first, equal_nan=True) for c in batch.values()),
+          "wct_significance_batch changes with mc_batch / pair_block")
+    log(f"[{card}] MC curve bit for bit at mc_batch {list(curves)} and "
+        f"wct_significance_batch at (mc_batch, pair_block) {list(batch)}")
+
+    sup = _support("test_torch_matmul_pin_support")
+    saved = sup.state()
+    ref = _pinned_results()
+    out["pinned"] = {}
+    try:
+        for setting in CARD_CALLERS:
+            sup.CALLERS[setting]()
+            before = sup.state()
+            got = _pinned_results()
+            check(sup.state() == before, f"{setting}: the caller's setting changed")
+            same = {k: _bitwise(got[k], v) for k, v in ref.items()}
+            check(all(same.values()), f"{setting}: results moved: {same}")
+            out["pinned"][setting] = before
+            sup.restore(saved)
+            log(f"[{card}] under {setting} ({before['cuda.matmul']} for cuBLAS): "
+                f"{len(same)} results bit for bit with the default setting "
+                f"({', '.join(same)})")
+    finally:
+        sup.restore(saved)
+    check(sup.state() == saved, "the process's matmul setting was not restored")
+    del ref
+
+    out["spectrum_cost"] = _spectrum_cost(card)
+    out["phase_times"] = {
+        "_wct_core 4,000 points ms": {"default": real["core"][False],
+                                       "cwt_direct": real["core"][True]},
+        "MC 300 members ms": {k: r["ms"] for k, r in mc["routes"].items()},
+        "overlap 2^24 ms": {k: r["ms"] for k, r in long["surfaces"].items()}}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[{card}] repairs ({out['seconds']:.2f} s); this run's times of the phases the "
+        f"f64 spectrum reaches: {json.dumps(out['phase_times'])}")
+    return out
+
+
 #: each run of phase_parallel: (run, ranks, backend); and a run's time limit
 PARALLEL_RUNS = (("A", 1, "nccl"), ("B", 4, "gloo"))
 PARALLEL_TIMEOUT = 300
@@ -2323,6 +2592,7 @@ def main():
     grad = phase_coherence_gradient()
     prof = phase_profiling(card, bench["rate"])
     examples = phase_examples(card)
+    repairs = phase_repairs(card, real, mc, long)
     common = dict(route="cuda", source=KERNEL_SOURCE, library_ms=bench["lib_ms"],
                   library_call="torch.fft.ifft of the filtered (64, 2^20) complex64 product",
                   max_rel_err_by_tier=worst, planes_err_vs_f64=four_step_vs_f64,
@@ -2436,7 +2706,7 @@ def main():
                     "examples_trace": examples["trace"],
                     "examples_child_s": examples["children"],
                     "examples_peak_bytes": examples["peak"],
-                    "parallel": par, "card": card,
+                    "parallel": par, "repairs": repairs, "card": card,
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

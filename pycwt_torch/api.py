@@ -56,7 +56,9 @@ def cwt(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet", freqs=None,
     sj, out_freqs = drop_reference_nan_rows(mother, grid.sj, grid.freqs,
                                             nfft, dt)
 
-    x = torch.as_tensor(signal[None, :], dtype=config.real_dtype, device=device)
+    # f64 rows: the kernels' route takes their spectrum in f64 and rounds it
+    # once; the other routes round the rows to config.real_dtype first
+    x = torch.as_tensor(signal[None, :], dtype=torch.float64, device=device)
     W, signal_ft = cwt_batch(x, torch.as_tensor(sj, device=device), dt,
                              mother=mother, nfft=nfft, config=config)
     W = _host(W[0])
@@ -81,10 +83,11 @@ def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     ``output="planes"`` returns ``(wr, wi, sj, freqs, coi)`` with each plane
     ``(n_scales, n0)`` f32; ``output="power"`` returns ``(power, sj, freqs,
     coi)`` with |W|² written by the kernel's epilogue.  Needs a pow-2
-    ``nfft``; the transform runs in f32 whatever ``config.dtype`` says, from
-    the host signal's spectrum taken in f64 and rounded to f32 planes."""
+    ``nfft``; the kernels run on f32 planes whatever ``config.dtype`` says,
+    from the host signal's spectrum taken in f64 and rounded once to f32
+    planes (``ops/fft._spectrum_f64``)."""
+    from .ops.fft import _spectrum_f64
     from .ops.fused_cwt import fused_cwt_planar
-    from .ops.mxu_dft import fft_of_real_planar
 
     device = _resolve_device(device)
     mother = as_mother(wavelet)
@@ -97,11 +100,9 @@ def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
                                             nfft, dt)
     coi = coi_bartlett(n0, dt, mother)
 
-    # An f32 FFT errs by ~1e-7 of the signal's norm in every bin; at the small
-    # scales of a record whose spectrum falls steeply (a trend, as Mauna Loa's
-    # CO2) that is most of the bins' own size.  In f64 each bin is rounded once.
-    x = torch.as_tensor(signal, dtype=torch.float64, device=device)
-    sr, si = (p.float() for p in fft_of_real_planar(x, nfft))
+    spec = _spectrum_f64(torch.as_tensor(signal, dtype=torch.float64,
+                                         device=device), nfft)
+    sr, si = spec.real.contiguous(), spec.imag.contiguous()
     out = fused_cwt_planar(
         sr, si, torch.as_tensor(sj, dtype=torch.float32, device=device),
         mother=mother, nfft=nfft, dt=float(dt), precision=config.precision,

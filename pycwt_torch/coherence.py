@@ -138,8 +138,8 @@ def _chi2_ppf_host(p: float, df) -> float:
 def _planar_w(y, scales, *, mother: Mother, nfft: int, dt: float,
               precision: str = "highest"):
     """Planar W ``(wr, wi)``, each ``(..., S, n)`` f32, of real rows ``y``
-    ``(..., n)``: ``_planar_cwt_of_real`` (the kernels on a CUDA tensor),
-    trimmed to the signal length."""
+    ``(..., n)``: ``_planar_cwt_of_real`` (their spectrum in f64, rounded
+    once; the kernels on a CUDA tensor), trimmed to the signal length."""
     from .ops.fused_cwt import _planar_cwt_of_real
 
     n = y.shape[-1]
@@ -150,10 +150,11 @@ def _planar_w(y, scales, *, mother: Mother, nfft: int, dt: float,
 
 def _wct_core_planar(y1n, y2n, scales, dt, *, mother: Mother, nfft: int,
                      dj: float):
-    """:func:`_wct_core` on real planes in f32: planar forward DFT →
-    ``fused_cwt_planar`` (the CUDA kernels on a CUDA tensor) → plane-packed
-    smoothing → coherence and arctan2 phase.  Needs a pow-2 nfft; below the
-    kernels' 2^8 the plain version runs.
+    """:func:`_wct_core` on real f32 planes: the forward spectrum of the rows
+    as given, in f64 rounded once to f32 planes → ``fused_cwt_planar`` (the
+    CUDA kernels on a CUDA tensor) → plane-packed smoothing → coherence and
+    arctan2 phase.  Needs a pow-2 nfft; below the kernels' 2^8 the plain
+    version runs.
 
     Returns ``(WCT, aWCT, (W12r, W12i))``.
     """
@@ -163,8 +164,8 @@ def _wct_core_planar(y1n, y2n, scales, dt, *, mother: Mother, nfft: int,
         raise ValueError(
             f"planar WCT needs a power-of-two nfft, got {nfft}. Use "
             "CWTConfig(pad_pow2=True) or a complex engine ('xla'/'mxu').")
-    y1n = torch.as_tensor(y1n).to(torch.float32)
-    y2n = torch.as_tensor(y2n).to(device=y1n.device, dtype=torch.float32)
+    y1n = torch.as_tensor(y1n)
+    y2n = torch.as_tensor(y2n).to(device=y1n.device)
     scales = torch.as_tensor(scales).to(device=y1n.device, dtype=torch.float32)
     w1r, w1i = _planar_w(y1n, scales, mother=mother, nfft=nfft, dt=dt)
     w2r, w2i = _planar_w(y2n, scales, mother=mother, nfft=nfft, dt=dt)

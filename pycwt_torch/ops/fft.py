@@ -95,11 +95,34 @@ def ifft(x: torch.Tensor, n: int | None = None, *, engine: str | None = None):
     return torch.fft.ifft(x, n=n, dim=-1).resolve_conj()
 
 
+def _mirrored(half: torch.Tensor, nfft: int) -> torch.Tensor:
+    """The full spectrum from an rFFT's bins 0 .. nfft//2: bins nfft-1 ..
+    nfft//2+1 mirror bins 1 .. (nfft-1)//2."""
+    mirror = torch.conj(half[..., 1 : (nfft + 1) // 2].flip(-1))
+    return torch.cat([half, mirror], dim=-1)
+
+
 def fft_of_real_full(x: torch.Tensor, nfft: int, *, engine: str | None = None):
     """Full complex spectrum of a real signal zero-padded to ``nfft``: an
     rFFT plus its Hermitian mirror."""
     _check_engine(x, nfft, engine)
-    half = torch.fft.rfft(x, n=nfft, dim=-1)
-    # bins nfft-1 .. nfft//2+1 mirror bins 1 .. (nfft-1)//2
-    mirror = torch.conj(half[..., 1 : (nfft + 1) // 2].flip(-1))
-    return torch.cat([half, mirror], dim=-1)
+    return _mirrored(torch.fft.rfft(x, n=nfft, dim=-1), nfft)
+
+
+def _spectrum_f64(x: torch.Tensor, nfft: int, *,
+                  dtype: torch.dtype = torch.complex64,
+                  engine: str | None = None) -> torch.Tensor:
+    """The forward spectrum that every f32 route into the kernels takes:
+    real rows ``x`` ``(..., n)`` of any float dtype, upcast to f64 on their
+    device (never downcast), rFFT zero-padded to ``nfft`` in f64, mirrored
+    to the full ``(..., nfft)`` spectrum and rounded once to ``dtype``.
+
+    An f32 FFT errs by ~1e-7 of the signal's norm in every bin; at the small
+    scales of a record whose spectrum falls steeply (a trend, as Mauna Loa's
+    CO2) that is most of the bins' own size.  In f64 each bin is rounded
+    once.  ``engine``, when given, gets the engine policy's non-pow-2
+    warning, as in :func:`fft_of_real_full`."""
+    if engine is not None:
+        _check_engine(x, nfft, engine)
+    return _mirrored(torch.fft.rfft(x.to(torch.float64), n=nfft, dim=-1),
+                     nfft).to(dtype)

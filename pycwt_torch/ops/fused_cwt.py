@@ -47,6 +47,7 @@ import torch
 
 from ..config import _PRECISIONS
 from ..mothers import DOG, Morlet, Mother, Paul
+from ._precision import full_f32_matmul
 from .filterbank import angular_frequencies
 
 __all__ = ["fused_cwt", "fused_cwt_planar", "supported_nfft",
@@ -202,12 +203,14 @@ def _direct_reference(sr, si, scales, *, mother: Mother, nfft: int,
     """Kernel K3's function in PyTorch, in the TPU kernel's formulation and
     the dtype given: the filtered product of :func:`_direct_filtered`, then a
     complex ``torch.matmul`` with the (K, nfft) matrix E[k, t] = e^{2πi·kt/N},
-    built in f64 and cast, over N.  Differentiable."""
+    built in f64 and cast, over N, in full f32 whatever the process sets
+    (:func:`full_f32_matmul`).  Differentiable."""
     y = _direct_filtered(sr, si, scales, mother=mother, nfft=nfft, dt=dt)
     k = torch.arange(y.shape[-1], device=sr.device)
     E = _roots((k[:, None] * torch.arange(nfft, device=sr.device)[None, :]) % nfft,
                nfft, y.dtype)
-    W = torch.matmul(y, E) / nfft
+    with full_f32_matmul():
+        W = torch.matmul(y, E) / nfft
     return _epilogue(W.real, W.imag, output)
 
 
@@ -223,12 +226,14 @@ def _stockham_pass(x, R: int, Ns: int):
     """One of ``cwt_direct``'s passes on complex rows ``x`` (..., N) whose
     points are combined in groups of Ns: butterfly j reads x[j + r·N/R],
     multiplies by e^{2πi·(j mod Ns)·r/(Ns·R)}, takes the R-point inverse DFT
-    and writes its output r to (j div Ns)·Ns·R + j mod Ns + r·Ns."""
+    and writes its output r to (j div Ns)·Ns·R + j mod Ns + r·Ns.  The
+    R-point DFT is a full-f32 product (:func:`full_f32_matmul`)."""
     N = x.shape[-1]
     j = torch.arange(N // R, device=x.device)[:, None]
     r = torch.arange(R, device=x.device)[None, :]
     v = x[..., j + r * (N // R)] * _roots((j % Ns) * r, Ns * R, x.dtype)
-    v = v @ _roots((r.T * r) % R, R, x.dtype)
+    with full_f32_matmul():
+        v = v @ _roots((r.T * r) % R, R, x.dtype)
     out = torch.empty_like(x)
     out[..., (j // Ns) * Ns * R + j % Ns + r * Ns] = v
     return out
@@ -569,14 +574,16 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
 
 def _planar_cwt_of_real(y, scales, *, mother: Mother, nfft: int, dt: float,
                         precision: str = "highest", output: str = "planes"):
-    """The forward CWT of real rows ``y`` ``(..., n)`` on planes, in f32:
-    ``fft_of_real_planar`` zero-padded to ``nfft``, then
+    """The forward CWT of real rows ``y`` ``(..., n)`` on f32 planes: the
+    spectrum zero-padded to ``nfft``, taken in f64 from the rows as given
+    and rounded once to f32 planes (``ops/fft._spectrum_f64``), then
     :func:`fused_cwt_planar` (the kernels on a CUDA tensor), or its plain
     version below the kernels' 2^8.  Returns the untrimmed width-``nfft``
     ``output`` (``"planes"``: ``(wr, wi)``, each ``(..., S, nfft)``)."""
-    from .mxu_dft import fft_of_real_planar
+    from .fft import _spectrum_f64
 
-    sr, si = fft_of_real_planar(torch.as_tensor(y).to(torch.float32), nfft)
+    spec = _spectrum_f64(torch.as_tensor(y), nfft)
+    sr, si = spec.real.contiguous(), spec.imag.contiguous()
     scales = torch.as_tensor(scales).to(device=sr.device, dtype=torch.float32)
     if supported_nfft(nfft):
         return fused_cwt_planar(sr, si, scales, mother=mother, nfft=nfft,

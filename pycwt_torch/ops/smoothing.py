@@ -18,11 +18,13 @@ package's real-plane contracts on top of :func:`smooth` of complex tensors.
 sharded over a mesh dim (``parallel/sharded.py``): the time pass stays
 row-local and the boxcar exchanges halo rows with the neighbouring ranks
 (:func:`scale_boxcar_same_sharded`).
-On the card the band matrix product runs in full f32 while
-``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default); its
-rows came out bit-identical at every batch count tried on the H100 (1, 7,
-64, 300 members of the Monte-Carlo shape), which the Monte-Carlo curves'
-independence of ``mc_batch`` rests on (``chip_smoke.py`` checks it).
+The band matrix product, forward and backward, runs in full f32 whatever
+the process sets (``ops/_precision.full_f32_matmul``), as ``pycwt_tpu``
+pins ``Precision.HIGHEST``: TF32 or bf16 set by ``allow_tf32`` or
+``torch.set_float32_matmul_precision`` does not reach it.  Its rows came out
+bit-identical at every batch count tried on the H100 (1, 7, 64, 300 members
+of the Monte-Carlo shape), which the Monte-Carlo curves' independence of
+``mc_batch`` rests on (``chip_smoke.py`` checks it).
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ import math
 import numpy as np
 import torch
 
-from ..config import next_pow2
+from ..config import _PRECISIONS, next_pow2
 from ..mothers import Mother
+from ._precision import full_f32_matmul
 from .fft import fft as engine_fft, ifft as engine_ifft
 
 __all__ = ["smooth", "smooth_planar_real", "smooth_planar_pair",
@@ -93,15 +96,35 @@ def _boxcar_band_matrix(S: int, win_key: tuple, dtype: torch.dtype,
     return torch.as_tensor(M, device=device).to(dtype)
 
 
+class _PinnedMatmul(torch.autograd.Function):
+    """``torch.matmul(M, T)`` for a constant matrix ``M``, forward and
+    backward under :func:`full_f32_matmul`: a backward runs after the
+    forward's scope has closed, so without its own pin Mᵀ·grad would follow
+    the caller's setting."""
+
+    @staticmethod
+    def forward(ctx, M, T):
+        ctx.save_for_backward(M)
+        with full_f32_matmul():
+            return torch.matmul(M, T)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (M,) = ctx.saved_tensors
+        with full_f32_matmul():
+            return None, torch.matmul(M.mT, grad)
+
+
 def _band_product(M: torch.Tensor, T):
-    """``M @ T`` along the scale axis (−2); a complex ``T`` is multiplied as
-    its real view ``(..., rows, 2N)``: the matrix is real, so the product of
-    the planes is the complex product."""
+    """``M @ T`` along the scale axis (−2), in full f32 whatever the process
+    sets (:class:`_PinnedMatmul`); a complex ``T`` is multiplied as its real
+    view ``(..., rows, 2N)``: the matrix is real, so the product of the
+    planes is the complex product."""
     if not T.is_complex():
-        return torch.matmul(M, T)
+        return _PinnedMatmul.apply(M, T)
     planes = torch.view_as_real(T.resolve_conj()).reshape(*T.shape[:-1],
                                                           2 * T.shape[-1])
-    out = torch.matmul(M, planes)
+    out = _PinnedMatmul.apply(M, planes)
     return torch.view_as_complex(out.reshape(*T.shape[:-2], M.shape[0],
                                              T.shape[-1], 2))
 
@@ -201,18 +224,34 @@ def smooth_scale_sharded(W, dt: float, dj: float, scales_local, mother: Mother,
     return scale_boxcar_same_sharded(T, win, axis_name=axis_name, mesh=mesh)
 
 
-def smooth_planar_real(T, dt: float, dj: float, scales, mother: Mother):
-    """:func:`smooth` of a REAL ``(..., S, N)`` tensor, which is real."""
+def _check_precision(precision) -> None:
+    """``pycwt_tpu``'s smoothing precision: ``None`` (its ``HIGHEST``) or a
+    tier name.  Every tier runs the same full-f32 band product."""
+    if precision is not None and precision not in _PRECISIONS:
+        raise ValueError(f"precision must be None or one of {_PRECISIONS}, "
+                         f"got {precision!r}")
+
+
+def smooth_planar_real(T, dt: float, dj: float, scales, mother: Mother,
+                       precision=None):
+    """:func:`smooth` of a REAL ``(..., S, N)`` tensor, which is real.
+    ``precision`` is ``pycwt_tpu``'s: ``None`` means ``"highest"``, and each
+    tier (``"highest"``, ``"high"``, ``"fast"``) runs the same full-f32
+    product; any other value raises."""
+    _check_precision(precision)
     return smooth(T, dt, dj, scales, mother)
 
 
-def smooth_planar_pair(Ta, Tb, dt: float, dj: float, scales, mother: Mother):
+def smooth_planar_pair(Ta, Tb, dt: float, dj: float, scales, mother: Mother,
+                       precision=None):
     """Smooth TWO real ``(..., S, N)`` planes in one complex pass: with
     ``x = Ta + i·Tb`` the real smoothing kernel commutes with Re/Im, so the
     real and imaginary planes of ``smooth(x)`` ARE the two smoothed fields.
     Equal to two :func:`smooth_planar_real` calls to round-off.  The WCT
     path (``coherence._wct_core_planar``) packs (|W1|², |W2|²) and
-    (Re W12, Im W12) this way."""
+    (Re W12, Im W12) this way.  ``precision`` as in
+    :func:`smooth_planar_real`."""
+    _check_precision(precision)
     sm = smooth(torch.complex(torch.as_tensor(Ta), torch.as_tensor(Tb)), dt, dj,
                 scales, mother)
     return sm.real, sm.imag

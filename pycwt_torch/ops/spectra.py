@@ -15,6 +15,7 @@ import math
 import torch
 
 from ..mothers import Mother
+from ._precision import full_f32_matmul
 from .fft import fft_of_real_full
 
 __all__ = ["global_power_parseval"]
@@ -26,7 +27,8 @@ def global_power_parseval(signals: torch.Tensor, scales, *, dt: float,
     """Time-summed wavelet power per scale, ``(B, S)``, without an iFFT.
 
     ``signals``: (B, n0) real; ``scales``: (S,).  Divide by ``n0`` for the
-    mean (global wavelet spectrum).
+    mean (global wavelet spectrum).  The sum over bins is a full-f32
+    product whatever the process sets (``ops/_precision.py``).
     """
     signals = torch.as_tensor(signals)
     rdt = signals.dtype
@@ -49,4 +51,5 @@ def global_power_parseval(signals: torch.Tensor, scales, *, dt: float,
         bank2 = torch.cat([env_p2[:, :1], both[:, 1:]], dim=1)
     bank2 = (norm2[:, None] * c2) * bank2
     p_half = X.abs() ** 2
-    return torch.einsum("bk,sk->bs", p_half, bank2) / nfft
+    with full_f32_matmul():        # an f32 einsum is a matrix product
+        return torch.einsum("bk,sk->bs", p_half, bank2) / nfft

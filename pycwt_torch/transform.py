@@ -8,8 +8,11 @@ Counterpart of ``pycwt_tpu/transform.py``:
 
 On a CUDA tensor under engine ``"pallas"``/``"planar"`` (the CUDA default
 for f32; f64 resolves to ``"xla"``, cuFFT in f64) the filter bank and the iFFT run as the fused CUDA kernels
-(``ops/fused_cwt.py``).  Scale grids, NaN-row drops and the COI are host
-numpy float64, decided before any device work.
+(``ops/fused_cwt.py``), and an f32 CPU tensor runs their plain version.  On
+those two engines the forward spectrum is taken in f64 from the rows as
+given and rounded once to the compute dtype (``ops/fft._spectrum_f64``);
+``"xla"`` and ``"mxu"`` take it in the compute dtype.  Scale grids, NaN-row
+drops and the COI are host numpy float64, decided before any device work.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import torch
 
 from .config import DEFAULT, CWTConfig, round_half_even
 from .mothers import Mother, as_mother
-from .ops.fft import fft_of_real_full, ifft as engine_ifft, resolve_engine
+from .ops.fft import (_spectrum_f64, fft_of_real_full, ifft as engine_ifft,
+                      resolve_engine)
 from .ops.filterbank import angular_frequencies, apply_filter_bank
 
 __all__ = [
@@ -107,7 +111,10 @@ def cwt_batch(
 
     Parameters
     ----------
-    signals: ``(B, n0)`` real tensor (numpy input lands on the CPU).
+    signals: ``(B, n0)`` real tensor (numpy input lands on the CPU).  On
+        the ``"pallas"``/``"planar"`` engines its spectrum is taken in f64
+        from the rows as given (f64 rows keep their digits); the other
+        engines round the rows to ``config``'s dtype first.
     scales: ``(S,)`` wavelet scales.
     dt: sampling interval.
     mother: mother-wavelet dataclass.
@@ -127,20 +134,23 @@ def cwt_batch(
                             device, rdt)
     if engine == "planar":
         engine = "pallas"
-    signals = signals.to(rdt)
     if signals.ndim != 2:
         raise ValueError(f"signals must be (B, n0), got {tuple(signals.shape)}")
     scales = torch.as_tensor(scales, dtype=rdt, device=device)
     n0 = signals.shape[-1]
 
-    signal_ft = fft_of_real_full(signals, nfft, engine=engine).to(cdt)
-
-    if engine == "pallas":
+    if engine != "pallas":
+        signal_ft = fft_of_real_full(signals.to(rdt), nfft, engine=engine).to(cdt)
+    else:
         from .ops.fused_cwt import fused_cwt, supported_nfft
 
-        # The kernels serve pow-2 nfft >= 256 on CUDA tensors; every other
-        # case runs torch.fft below (non-pow-2 lengths already warned).
-        if supported_nfft(nfft) and device.type == "cuda":
+        # the kernels' route: the rows' spectrum in f64, rounded once to cdt
+        signal_ft = _spectrum_f64(signals, nfft, dtype=cdt, engine=engine)
+
+        # The kernels serve pow-2 nfft >= 256 on CUDA tensors, and their
+        # plain version f32 on the CPU; every other case runs torch.fft
+        # below (non-pow-2 lengths already warned).
+        if supported_nfft(nfft) and (device.type == "cuda" or rdt == torch.float32):
             W_full = fused_cwt(signal_ft.to(torch.complex64),
                                scales.to(torch.float32), mother=mother,
                                nfft=nfft, dt=float(dt),

@@ -31,10 +31,9 @@ PORT_ONLY = {("pycwt_torch.ops.fft", "resolve_engine"): {"dtype"},
              ("pycwt_torch.parallel.distributed", "initialize"): {"device", "backend"},
              ("pycwt_torch.ops.smoothing", "scale_boxcar_same_sharded"): {"mesh"},
              ("pycwt_torch.ops.smoothing", "smooth_scale_sharded"): {"mesh"}}
-#: (module, function) -> pycwt_tpu parameters the port dropped: the
-#: smoothing precision (its planar smoothing has one f32/f64 product)
-JAX_ONLY = {("pycwt_torch.ops.smoothing", "smooth_planar_pair"): {"precision"},
-            ("pycwt_torch.ops.smoothing", "smooth_planar_real"): {"precision"}}
+#: (module, function) -> pycwt_tpu parameters the port dropped (none now:
+#: the planar smoothings take the precision, each tier in full f32)
+JAX_ONLY = {}
 #: (module, function) -> {port name: pycwt_tpu name}: rednoise_batch draws
 #: from a torch.Generator where pycwt_tpu takes a jax.random key
 RENAMED = {("pycwt_torch.stats", "rednoise_batch"): {"generator": "key"}}
