@@ -52,7 +52,14 @@ just after:
   maps against the CPU f64 port, the MC curve bit for bit across
   ``mc_batch`` 1/7/64/300 and ``pair_block``, the WCT, the MC curve, the
   32-station maps and a coherence gradient bit for bit under TF32 and
-  bf16 process settings, and the f64 spectrum's device cost.
+  bf16 process settings, and the f64 spectrum's device cost;
+* ``cwt_stage_b``'s ablation variants (``phase_relayout``, the counterpart
+  of ``tools/tpu_relayout_experiment.py``): the entry point
+  ``pycwt_torch.tools.relayout_experiment.run`` at 2^20 × 64 and 2^22 × 16,
+  ``full`` bit for bit with ``cwt_stage_b``'s planes, ``memcopy`` exact and
+  the others within 1e-5 of their plain versions, each variant's registers
+  and spills, the library's kernels' registers and spills against
+  ``PTXAS_BEFORE``, and cuFFT's column ``ifft`` over T beside them.
 
 K1 and K2 are checked at every column radix plan from 16 to 2048 points
 (nfft 2^8 to 2^22), and lightly at 4096 and 8192 (2^24, 2^26).  It times K1
@@ -67,8 +74,8 @@ the 4,000-point WCT and a 300-member Monte-Carlo run on both routes, the
 surfaces at N = 2^24, parity mode's 2^20 × 64 f64 transform and one cold
 and one warm ``sample_xwt.run`` on each route instead;
 ``--ab PARENT`` times the 4,000-point WCT and its smoothing, the
-300-member MC run and the 2^24 overlap-save CWT for an unpacked parent tree
-and this one in turns.  Any failure raises:
+300-member MC run, the 2^24 overlap-save CWT and the bench-shape pipeline
+for an unpacked parent tree and this one in turns.  Any failure raises:
 the exit code is then non-zero and no ``ok`` line is printed.  Without a
 CUDA device it exits non-zero at once.
 """
@@ -220,13 +227,23 @@ def phase_device():
 
 def _ptxas_usage(out):
     """(kernel, registers and spills) of each entry function in ``nvcc
-    -Xptxas -v`` output, the kernel named with its template argument."""
+    -Xptxas -v`` output, the kernel named with its template arguments:
+    ``cwt_stage_b<10>`` for the kernel every caller runs,
+    ``cwt_stage_b<10, memcopy>`` for an ablation variant."""
+    from pycwt_torch.ops import fused_cwt as fc
+
+    # a parent tree given to --ab may predate the ablation variants
+    variant = {str(i): name for name, i in getattr(fc, "ABLATIONS", {}).items()}
     rows, name = [], None
     for ln in out.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"\d(cwt_[a-z_]+?)_kernel(?:ILi(\d+)E)?", m.group(1))
-            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+            k = re.search(r"\d(cwt_[a-z_]+?)_kernel(?:ILi(\d+)E(?:Li(\d+)E)?)?",
+                          m.group(1))
+            args = [k.group(2)] if k and k.group(2) else []
+            if k and k.group(3) not in (None, "0"):
+                args.append(variant[k.group(3)])
+            name = (k.group(1) + (f"<{', '.join(args)}>" if args else "")
                     if k else m.group(1))
             rows.append([name, ""])
         elif name and ("spill" in ln or "registers" in ln):
@@ -235,6 +252,8 @@ def _ptxas_usage(out):
 
 
 def phase_build():
+    """Build every library; returns kernel -> its ``-Xptxas -v`` line (empty
+    where the libraries were already built)."""
     from pycwt_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -242,10 +261,56 @@ def phase_build():
     for name in _build.SOURCES:
         _build.library(name)
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    usage = {}
     for name, (secs, out) in _build.BUILD_LOG.items():
         log(f"  nvcc {name}: done after {secs:.2f} s")
-        for kernel, usage in _ptxas_usage(out):
-            log(f"    {kernel}: {usage}")
+        for kernel, line in _ptxas_usage(out):
+            log(f"    {kernel}: {line}")
+            usage[kernel] = line
+    return usage
+
+
+#: (registers, spill-store bytes, spill-load bytes) of every kernel
+#: instantiation before cwt_stage_b's ablation variants were added, as
+#: ``nvcc -Xptxas -v`` of release PTXAS_RELEASE printed them for the
+#: unchanged sources on an NVIDIA H100 80GB HBM3; the kernels the library
+#: runs must keep them.
+PTXAS_RELEASE = "12.9, V12.9.86"
+PTXAS_BEFORE = {
+    "cwt_direct<8>": (62, 0, 0), "cwt_direct<9>": (80, 0, 0),
+    "cwt_direct<10>": (64, 0, 0), "cwt_direct<11>": (62, 0, 0),
+    "cwt_direct<12>": (64, 4, 4),
+    "cwt_stage_a<4>": (64, 76, 76), "cwt_stage_a<5>": (64, 0, 0),
+    "cwt_stage_a<6>": (64, 32, 36), "cwt_stage_a<7>": (64, 32, 36),
+    "cwt_stage_a<8>": (64, 84, 88), "cwt_stage_a<9>": (64, 20, 20),
+    "cwt_stage_a<10>": (64, 48, 48), "cwt_stage_a<11>": (64, 52, 56),
+    "cwt_stage_a<12>": (64, 84, 84), "cwt_stage_a<13>": (64, 20, 24),
+    "cwt_stage_b<4>": (64, 0, 0), "cwt_stage_b<5>": (64, 0, 0),
+    "cwt_stage_b<6>": (64, 0, 0), "cwt_stage_b<7>": (64, 0, 0),
+    "cwt_stage_b<8>": (64, 0, 0), "cwt_stage_b<9>": (64, 16, 24),
+    "cwt_stage_b<10>": (64, 8, 8), "cwt_stage_b<11>": (64, 0, 0),
+    "cwt_stage_b<12>": (64, 0, 0), "cwt_stage_b<13>": (64, 8, 8),
+    "cwt_stage_b_reduce": (31, 0, 0),
+}
+
+
+def _ptxas_figures(line):
+    """(registers, spill-store bytes, spill-load bytes) of a ptxas line."""
+    def num(pattern):
+        m = re.search(pattern, line)
+        return int(m.group(1)) if m else 0
+
+    return (num(r"Used (\d+) registers"), num(r"(\d+) bytes spill stores"),
+            num(r"(\d+) bytes spill loads"))
+
+
+def _nvcc_release():
+    from pycwt_torch.ops import _build
+
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    m = re.search(r"release (\S+ V\S+)", out)
+    return m.group(1) if m else out.strip().splitlines()[-1]
 
 
 def _inputs(nfft, half, B, S, seed):
@@ -688,8 +753,9 @@ def phase_wct_timing():
     """``--time-wct TREE``: the 4,000-point ``_wct_core`` on both routes and
     its smoothing (``smooth_planar_pair`` on two (1, 133, 4000) planes, and
     the scale boxcar alone on the complex field), by CUDA events and device
-    time, then the 300-member MC run (default route, median of 5) and
-    ``cwt_overlap_save_planar`` at 2^24 × 64 scales (median of 3), for the
+    time, then the 300-member MC run (default route, median of 5),
+    ``cwt_overlap_save_planar`` at 2^24 × 64 scales (median of 3) and the
+    bench-shape pipeline (median of 21, and its device time), for the
     ``pycwt_torch`` of the tree on ``sys.path``; one JSON line."""
     import pycwt_torch as pt
     from pycwt_torch import coherence as tco
@@ -723,6 +789,9 @@ def phase_wct_timing():
                        device="cuda")
     out["overlap_2p24_ms"] = time_ms(lambda: tov.cwt_overlap_save_planar(
         x, lsj, 1.0, mother=pt.Morlet(6), chunk=LONG_CHUNK), runs=3, warmup=1)
+    pipeline = _bench_pipeline()
+    out["bench_pipeline_ms"] = time_ms(pipeline, runs=21, warmup=3)
+    out["bench_pipeline_device_ms"] = device_ms(pipeline, calls=20)
     log("WCT timing " + json.dumps(out))
     return out
 
@@ -2567,10 +2636,108 @@ def phase_parallel(card):
     return out
 
 
+#: nfft × scales of phase_relayout: the JAX tool's shape, and the one where
+#: cwt_stage_b ran at ~20 % of its byte bound
+RELAYOUT_SHAPES = ((1 << 20, 64), (1 << 22, 16))
+#: the variants' bound against their plain versions, relative to max|out|
+#: (memcopy: exact)
+RELAYOUT_BOUND = 1e-5
+
+
+def _relayout_ptxas(usage):
+    """Each ablation variant's registers and spills, and the check that the
+    kernels the library runs kept PTXAS_BEFORE's (under the same nvcc)."""
+    release = _nvcc_release()
+    for kernel, line in usage.items():
+        if "," in kernel:
+            log(f"  ablation {kernel}: {line}")
+    if not usage:
+        log("  ptxas figures: libraries loaded from an earlier build, not compared")
+        return {"nvcc": release, "compared": 0}
+    if release != PTXAS_RELEASE:
+        log(f"  ptxas figures recorded under nvcc {PTXAS_RELEASE}, this is {release}: "
+            "not compared")
+        return {"nvcc": release, "compared": 0}
+    for kernel, want in PTXAS_BEFORE.items():
+        check(kernel in usage, f"ptxas printed nothing for {kernel}")
+        got = _ptxas_figures(usage[kernel])
+        check(got == want, f"{kernel}: registers and spills {got}, before {want}")
+    log(f"  ptxas: all {len(PTXAS_BEFORE)} kernels the library runs keep their "
+        "registers and spills")
+    return {"nvcc": release, "compared": len(PTXAS_BEFORE)}
+
+
+def phase_relayout(card, usage):
+    """Counterpart of tools/tpu_relayout_experiment.py: cwt_stage_b's
+    ablation variants (pycwt_torch/tools/relayout_experiment.py) at each
+    RELAYOUT_SHAPES.  The tool's entry point ``run`` is the path driven, its
+    launch counts set to 0 just before and read just after; then on the
+    same T (stage_a of the seeded signal) ``full`` against
+    ``stage_b(output="planes")`` bit for bit, each variant against its plain
+    version on the card, the plain versions' times, and cuFFT's column
+    ``ifft`` over T's own layout."""
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.tools import relayout_experiment as rx
+
+    ptxas = _relayout_ptxas(usage)
+    shapes = {}
+    for nfft, S in RELAYOUT_SHAPES:
+        for v in rx.LAUNCHES:
+            rx.LAUNCHES[v] = 0
+        line = rx.run(nfft=nfft, scales=S, seed=0, rounds=2)
+        launches = dict(rx.LAUNCHES)
+        check(all(launches[v] > 0 for v in rx.VARIANTS),
+              f"relayout 2^{nfft.bit_length() - 1}: a variant was not launched: {launches}")
+        tr, ti = rx.make_t(nfft, S, seed=0)
+        ref = fc.stage_b(tr, ti, nfft=nfft, output="planes")
+        b_launches = fc.KERNEL_LAUNCHES["cwt_stage_b"]
+        rows = {}
+        for v in rx.VARIANTS:
+            got = rx.ablated_stage_b(tr, ti, nfft=nfft, variant=v)
+            if v == "full":
+                check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                      f"relayout 2^{nfft.bit_length() - 1}: full is not cwt_stage_b's planes")
+            plain = fc._stage_b_ablation_reference(tr, ti, nfft=nfft, variant=v)
+            err = max(float((got[0] - plain[0]).abs().max()),
+                      float((got[1] - plain[1]).abs().max()))
+            tol = 0.0 if v == "memcopy" else RELAYOUT_BOUND * float(
+                torch.complex(*plain).abs().max())
+            check(err <= tol, f"relayout 2^{nfft.bit_length() - 1} {v}: {err} > {tol}")
+            del got, plain
+            plain_ms = time_ms(lambda v=v: fc._stage_b_ablation_reference(
+                tr, ti, nfft=nfft, variant=v), runs=3, warmup=1)
+            rows[v] = dict(device_ms=line[v], event_ms=line["event_ms"][v],
+                           bound_share=line["bound_share"][v], max_abs_err=err,
+                           tolerance=tol, launches=launches[v], plain_ms=plain_ms)
+        check(fc.KERNEL_LAUNCHES["cwt_stage_b"] == b_launches,
+              f"a variant moved cwt_stage_b's counter: {fc.KERNEL_LAUNCHES}")
+        del ref
+        z = torch.complex(tr, ti)
+        del tr, ti
+        ifft = lambda: torch.fft.ifft(z, dim=-2, norm="forward")  # noqa: E731
+        lib_ms = device_ms(ifft, calls=10, floor=line["bound_ms"])
+        lib_event_ms = time_ms(ifft, runs=5)
+        del z
+        torch.cuda.empty_cache()
+        key = f"2^{nfft.bit_length() - 1}x{S}"
+        shapes[key] = dict(nfft=nfft, S=S, R1=line["R1"], R2=line["R2"],
+                           bound_ms=line["bound_ms"], library_ms=lib_ms,
+                           library_event_ms=lib_event_ms,
+                           non_butterfly_share_pct=line["non_butterfly_share_pct"],
+                           variants=rows)
+        log(f"[{card}] relayout {key} (R1 {line['R1']}, device ms per call, share of "
+            f"the {line['bound_ms']:.4f} ms byte bound; max |err| vs plain): " +
+            "; ".join(f"{v} {r['device_ms']:.4f} ({100 * r['bound_share']:.1f} %; "
+                      f"{r['max_abs_err']:.3e})" for v, r in rows.items()) +
+            f"; cuFFT column ifft over T {lib_ms:.4f} (events {lib_event_ms:.4f}); "
+            f"non-butterfly share {line['non_butterfly_share_pct']:.1f} %")
+    return dict(shapes=shapes, ptxas=ptxas)
+
+
 def main():
     card = phase_device()
     t0 = time.perf_counter()
-    phase_build()
+    usage = phase_build()
     par = phase_parallel(card)
     worst, four_step_vs_f64 = phase_kernels_vs_plain()
     large = phase_large_columns()
@@ -2583,6 +2750,14 @@ def main():
     real = phase_real_size()
     sizes = phase_direct_sizes()
     plans = phase_column_plans()
+    from pycwt_torch.tools import relayout_experiment as rx
+
+    check(sum(rx.LAUNCHES.values()) == 0,
+          f"a library path launched an ablation variant: {rx.LAUNCHES}")
+    # early in the run: late in a long process CUPTI has lost kernel records
+    relayout = phase_relayout(card, usage)
+    for v in rx.LAUNCHES:
+        rx.LAUNCHES[v] = 0
     phase_direct_gradient()
     mc = phase_mc_significance()
     pairs = phase_pairs(card)
@@ -2593,6 +2768,10 @@ def main():
     prof = phase_profiling(card, bench["rate"])
     examples = phase_examples(card)
     repairs = phase_repairs(card, real, mc, long)
+    # every library path, before phase_relayout and after it, launched no variant
+    library_path_launches = sum(rx.LAUNCHES.values())
+    check(library_path_launches == 0,
+          f"a library path launched an ablation variant: {rx.LAUNCHES}")
     common = dict(route="cuda", source=KERNEL_SOURCE, library_ms=bench["lib_ms"],
                   library_call="torch.fft.ifft of the filtered (64, 2^20) complex64 product",
                   max_rel_err_by_tier=worst, planes_err_vs_f64=four_step_vs_f64,
@@ -2655,6 +2834,26 @@ def main():
         k["sharded_launches_per_call_per_rank"] = {
             run: {srf: r["launches"][name] for srf, r in res.items()}
             for run, res in par["runs"].items()}
+    jax_shape = relayout["shapes"]["2^20x64"]
+    variants = [r for sh in relayout["shapes"].values() for r in sh["variants"].values()]
+    kernels.append(dict(
+        name="cwt_stage_b_ablation", route="cuda", source=KERNEL_SOURCE,
+        replaces="tools/tpu_relayout_experiment.py:102",
+        tpu_kernel="make_kernel(variant, precision): ablated kernel B",
+        launches=sum(r["launches"] for r in variants),
+        max_abs_err=max(r["max_abs_err"] for r in variants),
+        tolerance=f"{RELAYOUT_BOUND} of max|out| of each variant's plain version; "
+                  "memcopy and full (against cwt_stage_b) exact",
+        ms=jax_shape["variants"]["full"]["device_ms"],
+        ms_by="torch.profiler device time per call of the full variant at 2^20 x 64",
+        plain_ms=jax_shape["variants"]["full"]["plain_ms"],
+        bound_ms=jax_shape["bound_ms"], bound_by="bytes",
+        bound_share=jax_shape["variants"]["full"]["bound_share"],
+        library_ms=jax_shape["library_ms"],
+        library_call="torch.fft.ifft(torch.complex(tr, ti), dim=-2, norm='forward') "
+                     "over T (rows, R1, R2)",
+        library_path_launches=library_path_launches,
+        shapes=relayout["shapes"], ptxas=relayout["ptxas"], card=card))
     log(json.dumps({"pipeline_ms": bench["ms_pipe"], "pipeline_device_ms": bench["dev_pipe"],
                     "plain_pipeline_ms": bench["plain_pipe"],
                     "sample_scales_per_s": bench["rate"],

@@ -18,6 +18,13 @@ constexpr float kTwoPi = 6.283185307179586f;
 
 enum Mother { kMorlet = 0, kPaul = 1, kDog = 2 };
 enum Mode { kPlanes = 0, kPower = 1, kPowerSum = 2 };
+// Stages that an ablation variant of cwt_stage_b takes out of the column FFT
+// (pycwt_torch/tools/relayout_experiment.py), bit flags: kNoTwiddle drops the
+// twiddle multiplies of the passes after the first, kNoExchange the
+// shared-memory round trip between passes, both together leave the
+// in-register radix DFTs (kButterflies); kMemcopy runs no pass at all.  0
+// (kFull) is the kernel every caller runs.  Wrong numbers by design.
+enum Ablate { kFull = 0, kNoTwiddle = 1, kNoExchange = 2, kButterflies = 3, kMemcopy = 4 };
 
 __device__ __forceinline__ float int_pow(float x, int m) {
   float r = 1.0f;
@@ -160,8 +167,10 @@ __device__ __forceinline__ float2 twiddle(const float2* tw, int c, int r) {
 // combined in groups of NS, the sequence at slots base + pad(p) of buf:
 // butterfly jj (16/R of them per thread, TR apart) reads x[jj + r*N/R],
 // multiplies by the twiddle of (jj % NS, r), and runs an R-point DFT; the
-// results stay in v for pass_store (or the caller's epilogue).
-template <int R, int NS, int N, int TR>
+// results stay in v for pass_store (or the caller's epilogue).  ABLATE (enum
+// Ablate) drops the read of buf, the butterfly then taking v[q*R + r] as the
+// thread holds it, and/or the twiddle multiply.
+template <int R, int NS, int N, int TR, int ABLATE = kFull>
 __device__ __forceinline__ void pass_load(float2* v, const float2* buf, const float2* tw,
                                           int base, int lt) {
 #pragma unroll
@@ -169,8 +178,10 @@ __device__ __forceinline__ void pass_load(float2* v, const float2* buf, const fl
     const int jj = lt + q * TR;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      v[q * R + r] = buf[base + pad(jj + r * (N / R))];
-      if (r > 0) v[q * R + r] = cmul(v[q * R + r], twiddle<NS, R, N>(tw, jj % NS, r));
+      if constexpr (!(ABLATE & kNoExchange)) v[q * R + r] = buf[base + pad(jj + r * (N / R))];
+      if constexpr (!(ABLATE & kNoTwiddle)) {
+        if (r > 0) v[q * R + r] = cmul(v[q * R + r], twiddle<NS, R, N>(tw, jj % NS, r));
+      }
     }
     dft<R>(v + q * R);
   }
@@ -203,13 +214,15 @@ struct ColumnPlan {
   static constexpr int kTw = kPasses < 2 ? 0 : 256 + (kPasses > 2 ? 64 + kR / 64 : 0);
 };
 
-template <int NS, int R, int TC>
+template <int NS, int R, int TC, int ABLATE>
 __device__ __forceinline__ void inner_pass(float2* v, float2* buf, const float2* tw,
                                            int base, int lt) {
-  pass_load<16, NS, R, TC>(v, buf, tw, base, lt);
-  __syncthreads();   // every read of this pass is done
-  pass_store<16, NS, TC>(v, buf, base, lt);
-  __syncthreads();
+  pass_load<16, NS, R, TC, ABLATE>(v, buf, tw, base, lt);
+  if constexpr (!(ABLATE & kNoExchange)) {
+    __syncthreads();   // every read of this pass is done
+    pass_store<16, NS, TC>(v, buf, base, lt);
+    __syncthreads();
+  }
 }
 
 // Inverse DFT of the block's columns.  The threads map to (column, lt) two
@@ -222,20 +235,33 @@ __device__ __forceinline__ void inner_pass(float2* v, float2* buf, const float2*
 // jj = lt + q*R/16, of the last pass's map (RL = kLast; the column map when
 // there is one pass).  The tw table (fill_twiddles, kTw entries) must be
 // filled before the call; every thread of the block calls it.
-template <int LOG_R, bool LAST_BY_COLUMN>
+//
+// ABLATE != kFull (enum Ablate; cwt_stage_b's ablation variants only) takes
+// stages out.  Without the exchange (kNoExchange) nothing goes through buf:
+// every pass runs on the thread's own registers, the thread keeps the column
+// map (lt = col_lt in every pass's twiddle index jj = lt + q*R/16), and the
+// one barrier left publishes the twiddle table (none without twiddles
+// either).  The result is then wrong by design, and the output map above
+// holds with lt = col_lt.
+template <int LOG_R, bool LAST_BY_COLUMN, int ABLATE = kFull>
 __device__ __forceinline__ void column_stockham(float2* v, float2* buf, const float2* tw,
                                                 int col_base, int col_lt,
                                                 int pt_base, int pt_lt) {
   using P = ColumnPlan<LOG_R>;
+  static_assert(ABLATE >= kFull && ABLATE <= kButterflies, "no such column ablation");
+  constexpr bool kExchange = !(ABLATE & kNoExchange);
   dft<16>(v);
   if constexpr (P::kPasses > 1) {
-    pass_store<16, 1, P::kTC>(v, buf, col_base, col_lt);
-    __syncthreads();   // the first pass's results and the twiddles are in place
-    if constexpr (P::kPasses > 2) inner_pass<16, P::kR, P::kTC>(v, buf, tw, pt_base, pt_lt);
-    if constexpr (P::kPasses > 3) inner_pass<256, P::kR, P::kTC>(v, buf, tw, pt_base, pt_lt);
-    pass_load<P::kLast, P::kLastNS, P::kR, P::kTC>(v, buf, tw,
-                                                   LAST_BY_COLUMN ? col_base : pt_base,
-                                                   LAST_BY_COLUMN ? col_lt : pt_lt);
+    if constexpr (kExchange) pass_store<16, 1, P::kTC>(v, buf, col_base, col_lt);
+    // the first pass's results and the twiddles are in place
+    if constexpr (ABLATE != kButterflies) __syncthreads();
+    const int base = kExchange ? pt_base : col_base;
+    const int lt = kExchange ? pt_lt : col_lt;
+    if constexpr (P::kPasses > 2) inner_pass<16, P::kR, P::kTC, ABLATE>(v, buf, tw, base, lt);
+    if constexpr (P::kPasses > 3) inner_pass<256, P::kR, P::kTC, ABLATE>(v, buf, tw, base, lt);
+    pass_load<P::kLast, P::kLastNS, P::kR, P::kTC, ABLATE>(
+        v, buf, tw, LAST_BY_COLUMN || !kExchange ? col_base : pt_base,
+        LAST_BY_COLUMN || !kExchange ? col_lt : pt_lt);
   }
 }
 

@@ -171,7 +171,11 @@ cwt_stage_a_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-template <int LOG_R>
+// ABLATE (enum Ablate, fft_common.cuh) is kFull for every caller but
+// cwt_stage_b_ablation, whose variants take stages out of this same body:
+// kNoTwiddle, kNoExchange and kButterflies out of column_stockham, kMemcopy
+// all of it (the first pass's loads go straight to the epilogue's stores).
+template <int LOG_R, int ABLATE = kFull>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 cwt_stage_b_kernel(const float* __restrict__ tr, const float* __restrict__ ti,
                    float* __restrict__ out0, float* __restrict__ out1,
@@ -205,9 +209,11 @@ cwt_stage_b_kernel(const float* __restrict__ tr, const float* __restrict__ ti,
     const long long q = (long long)(lt + r * TC) * R2;
     v[r] = make_float2(trr[q], tir[q]);
   }
-  fill_twiddles(tw, R, P::kTw, tid, blockDim.x);
+  if constexpr (ABLATE != kMemcopy) {
+    fill_twiddles(tw, R, P::kTw, tid, blockDim.x);
 
-  column_stockham<LOG_R, true>(v, buf, tw, j * ld, lt, j2 * ld, l2);
+    column_stockham<LOG_R, true, ABLATE>(v, buf, tw, j * ld, lt, j2 * ld, l2);
+  }
 
   // Epilogue: output d = jj + r*R/RL of column c0 + j is W[c0 + j + R2*d]*N.
   float acc = 0.0f;
@@ -335,18 +341,18 @@ cudaError_t launch_a(const float* xr, const float* xi, long long x_stride,
   return cudaGetLastError();
 }
 
-template <int LOG_R>
+template <int LOG_R, int ABLATE = kFull>
 cudaError_t launch_b(const float* tr, const float* ti, float* out0, float* out1,
                      long long rows, int R2, int cols, int mode, float inv_n,
                      const int* plan, cudaStream_t stream) {
   constexpr int R = 1 << LOG_R;
   if (!plan_matches<LOG_R>(plan) || !tile_ok(R, cols, R2)) return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> done{0};
-  cudaError_t err = allow_smem((const void*)cwt_stage_b_kernel<LOG_R>, done);
+  cudaError_t err = allow_smem((const void*)cwt_stage_b_kernel<LOG_R, ABLATE>, done);
   if (err != cudaSuccess) return err;
   const long long blocks = rows * (R2 / cols);
-  cwt_stage_b_kernel<LOG_R><<<(unsigned)blocks, cols * R / 16, smem_bytes<LOG_R>(cols),
-                              stream>>>(
+  cwt_stage_b_kernel<LOG_R, ABLATE><<<(unsigned)blocks, cols * R / 16,
+                                      smem_bytes<LOG_R>(cols), stream>>>(
       tr, ti, out0, out1, R2, log2i(cols), column_ld(R, cols), mode, inv_n);
   return cudaGetLastError();
 }
@@ -354,6 +360,8 @@ cudaError_t launch_b(const float* tr, const float* ti, float* out0, float* out1,
 }  // namespace
 
 #define PYCWT_COLUMN_CASES(X) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)
+// cwt_stage_b_ablation's column lengths: 16 to 2048 (nfft 2^8 to 2^23)
+#define PYCWT_ABLATION_CASES(X) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11)
 
 extern "C" {
 
@@ -407,6 +415,43 @@ cudaError_t cwt_stage_b(const float* tr, const float* ti, float* out0, float* ou
   cwt_stage_b_reduce_kernel<<<rblocks, kReduceThreads, 0, st>>>(out0, out1, rows,
                                                                 R2 / cols);
   return cudaGetLastError();
+}
+
+// cwt_stage_b's planes mode with the stages of `variant` taken out (enum
+// Ablate: 0 full, the kernel itself; 1 no twiddles; 2 no exchange; 3 the
+// in-register DFTs alone; 4 loads and stores alone), the same grid, blocks,
+// shared memory and bytes: T (rows, R1, R2) in, W planes (rows, N) out, for
+// R1 from 16 to 2048.  Counterpart of tools/tpu_relayout_experiment.py's
+// ablated kernel B; every variant but 0 computes wrong numbers by design.
+cudaError_t cwt_stage_b_ablation(const float* tr, const float* ti, float* out0,
+                                 float* out1, long long rows, int R1, int R2, int cols,
+                                 float inv_n, int p0, int p1, int p2, int p3,
+                                 int variant, void* stream) {
+  const int plan[4] = {p0, p1, p2, p3};
+  if (rows < 1) return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define PYCWT_ABLATION_VARIANT(LOG_R, V)                                              \
+  case V:                                                                             \
+    return launch_b<LOG_R, V>(tr, ti, out0, out1, rows, R2, cols, kPlanes, inv_n, plan, \
+                              st);
+#define PYCWT_ABLATION_CASE(LOG_R)                                                    \
+  case 1 << LOG_R:                                                                    \
+    switch (variant) {                                                                \
+      PYCWT_ABLATION_VARIANT(LOG_R, kFull)                                            \
+      PYCWT_ABLATION_VARIANT(LOG_R, kNoTwiddle)                                       \
+      PYCWT_ABLATION_VARIANT(LOG_R, kNoExchange)                                      \
+      PYCWT_ABLATION_VARIANT(LOG_R, kButterflies)                                     \
+      PYCWT_ABLATION_VARIANT(LOG_R, kMemcopy)                                         \
+      default:                                                                        \
+        return cudaErrorInvalidValue;                                                 \
+    }
+  switch (R1) {
+    PYCWT_ABLATION_CASES(PYCWT_ABLATION_CASE)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PYCWT_ABLATION_CASE
+#undef PYCWT_ABLATION_VARIANT
 }
 
 }  // extern "C"

@@ -38,6 +38,8 @@ _SIGNATURES = {
                          _I, _F, _I, _F, _F, _F, _F, _I, _I, _I, _I, _V], _I),
         "cwt_stage_b": ([_V, _V, _V, _V, _LL, _I, _I, _I, _I, _F,
                          _I, _I, _I, _I, _V], _I),
+        "cwt_stage_b_ablation": ([_V, _V, _V, _V, _LL, _I, _I, _I, _F,
+                                  _I, _I, _I, _I, _I, _V], _I),
     },
     "direct_cwt": {
         "cwt_direct": ([_V, _V, _LL, _V, _V, _V, _I, _I, _I, _I, _I, _F,

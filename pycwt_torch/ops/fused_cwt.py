@@ -21,6 +21,8 @@ The kernels' gradient replays the plain version (:class:`_FusedCWT`), as the
 JAX package's ``_with_xla_vjp`` does.  Each kernel wrapper also has its own
 plain version (:func:`_stage_a_reference`, :func:`_stage_b_reference`) with
 the kernel's exact layout, so the four-step split is checked on the CPU.
+``cwt_stage_b``'s ablation variants (``tools/relayout_experiment.py``) have
+theirs in :func:`_stage_b_ablation_reference`.
 
 For nfft ≤ 2^12, ``small_kernel=True`` (or ``PYCWT_TPU_SMALL_KERNEL=1``)
 selects the JAX package's opt-in small-nfft kernel ``_make_kernel_direct``
@@ -222,29 +224,38 @@ def _direct_radix_plan(nfft: int) -> tuple[int, ...]:
     return (16, 16) if nfft == 256 else (16, 16, nfft // 256)
 
 
-def _stockham_pass(x, R: int, Ns: int):
+def _radix_dft(v, R: int):
+    """The R-point inverse DFT (unscaled) of the last dim of ``v``, as a
+    full-f32 product (:func:`full_f32_matmul`)."""
+    r = torch.arange(R, device=v.device)
+    with full_f32_matmul():
+        return v @ _roots((r[:, None] * r[None, :]) % R, R, v.dtype)
+
+
+def _stockham_pass(x, R: int, Ns: int, twiddle: bool = True):
     """One of ``cwt_direct``'s passes on complex rows ``x`` (..., N) whose
     points are combined in groups of Ns: butterfly j reads x[j + r·N/R],
-    multiplies by e^{2πi·(j mod Ns)·r/(Ns·R)}, takes the R-point inverse DFT
-    and writes its output r to (j div Ns)·Ns·R + j mod Ns + r·Ns.  The
-    R-point DFT is a full-f32 product (:func:`full_f32_matmul`)."""
+    multiplies by e^{2πi·(j mod Ns)·r/(Ns·R)} (unless not ``twiddle``), takes
+    the R-point inverse DFT and writes its output r to
+    (j div Ns)·Ns·R + j mod Ns + r·Ns."""
     N = x.shape[-1]
     j = torch.arange(N // R, device=x.device)[:, None]
     r = torch.arange(R, device=x.device)[None, :]
-    v = x[..., j + r * (N // R)] * _roots((j % Ns) * r, Ns * R, x.dtype)
-    with full_f32_matmul():
-        v = v @ _roots((r.T * r) % R, R, x.dtype)
+    v = x[..., j + r * (N // R)]
+    if twiddle:
+        v = v * _roots((j % Ns) * r, Ns * R, x.dtype)
     out = torch.empty_like(x)
-    out[..., (j // Ns) * Ns * R + j % Ns + r * Ns] = v
+    out[..., (j // Ns) * Ns * R + j % Ns + r * Ns] = _radix_dft(v, R)
     return out
 
 
-def _stockham(x, plan):
+def _stockham(x, plan, twiddle: bool = True):
     """The Stockham passes of ``plan`` (radices, in order) over the last dim
-    of ``x``: the unnormalised inverse DFT, in the kernels' pass order."""
+    of ``x``: the unnormalised inverse DFT, in the kernels' pass order (with
+    ``twiddle=False`` the passes without their twiddles, a wrong transform)."""
     Ns = 1
     for R in plan:
-        x = _stockham_pass(x, R, Ns)
+        x = _stockham_pass(x, R, Ns, twiddle)
         Ns *= R
     return x
 
@@ -266,6 +277,79 @@ def _column_stockham(x, dim: int):
     passes of :func:`_column_radix_plan`, in the kernels' order."""
     y = _stockham(x.movedim(dim, -1), _column_radix_plan(x.shape[dim]))
     return y.movedim(-1, dim)
+
+
+#: cwt_stage_b_ablation's variants -> their id (enum Ablate in
+#: csrc/fft_common.cuh); ``tools/relayout_experiment.py`` says what each is
+ABLATIONS = {"full": 0, "notwiddle": 1, "noexchange": 2, "butterflies": 3,
+             "memcopy": 4}
+
+
+def _thread_map(R: int, device):
+    """cwt_stage_b's map of a length-R column onto its R/16 threads, 16
+    points each: ``(src, dst)``, both ``(R/16, 16)``.  Thread lt loads
+    v[k] = x[src[lt, k]] = x[lt + k·R/16]; the last pass (radix RL) leaves
+    output d = dst[lt, q·RL + r] = lt + q·R/16 + r·R/RL in v[q·RL + r]."""
+    TC, RL = R // 16, _column_radix_plan(R)[-1]
+    lt = torch.arange(TC, device=device)[:, None]
+    k = torch.arange(16, device=device)[None, :]
+    return lt + k * TC, lt + (k // RL) * TC + (k % RL) * (R // RL)
+
+
+def _register_passes(x, twiddle: bool):
+    """cwt_stage_b's column FFT without the shared-memory exchange (the
+    ``noexchange`` ablation, and ``butterflies`` when not ``twiddle``) over
+    the last dim of ``x``: each thread runs every pass of
+    :func:`_column_radix_plan` on its own 16 points in the column map of
+    :func:`_thread_map`: the twiddles e^{2πi·(jj mod Ns)·r/(Ns·R)} of
+    jj = lt + q·R/16, then the radix-R DFT of each group q of R consecutive
+    registers.  Wrong by design beyond one pass."""
+    R = x.shape[-1]
+    src, dst = _thread_map(R, x.device)
+    v = x[..., src]                                   # (..., R/16, 16)
+    lt = torch.arange(R // 16, device=x.device)[:, None, None]
+    Ns = 1
+    for Rp in _column_radix_plan(R):
+        v = v.reshape(*v.shape[:-1], 16 // Rp, Rp)
+        if twiddle and Ns > 1:
+            q = torch.arange(16 // Rp, device=x.device)[None, :, None]
+            r = torch.arange(Rp, device=x.device)[None, None, :]
+            v = v * _roots(((lt + q * (R // 16)) % Ns) * r, Ns * Rp, x.dtype)
+        v = _radix_dft(v, Rp).flatten(-2)
+        Ns *= Rp
+    out = torch.empty_like(x)
+    out[..., dst] = v
+    return out
+
+
+def _ablated_column(x, dim: int, variant: str):
+    """The column FFT of cwt_stage_b's ablation ``variant`` (see
+    :data:`ABLATIONS`) along ``dim``, for the tests and the card's check:
+    ``full`` the kernels' passes (:func:`_column_stockham`), ``notwiddle``
+    those passes without twiddles, ``noexchange`` and ``butterflies``
+    :func:`_register_passes` with and without twiddles, ``memcopy`` the
+    permutation of :func:`_thread_map` alone."""
+    x = x.movedim(dim, -1)
+    plan = _column_radix_plan(x.shape[-1])
+    if variant in ("full", "notwiddle"):
+        y = _stockham(x, plan, twiddle=variant == "full")
+    elif variant in ("noexchange", "butterflies"):
+        y = _register_passes(x, twiddle=variant == "noexchange")
+    elif variant == "memcopy":
+        src, dst = _thread_map(x.shape[-1], x.device)
+        y = torch.empty_like(x)
+        y[..., dst] = x[..., src]
+    else:
+        raise ValueError(f"variant must be one of {tuple(ABLATIONS)}, got {variant!r}")
+    return y.movedim(-1, dim)
+
+
+def _stage_b_ablation_reference(tr, ti, *, nfft: int, variant: str):
+    """``cwt_stage_b_ablation``'s function in PyTorch: :func:`_stage_b_reference`'s
+    planes on the column FFT of :func:`_ablated_column`."""
+    return _stage_b_reference(
+        tr, ti, nfft=nfft, output="planes",
+        column_fft=lambda x, dim: _ablated_column(x, dim, variant))
 
 
 def _column_ifft(x, dim: int):
