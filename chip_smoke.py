@@ -10,6 +10,15 @@ just after:
 * the forward-CWT main path (``cwt``, ``cwt_power``, and the 2^20-point,
   64-scale ``fft_of_real_planar`` → ``fused_cwt_planar`` pipeline) on
   ``cwt_stage_a`` + ``cwt_stage_b``;
+* the ``fast`` tier's bf16 T (``phase_public_fast``, the bench shape):
+  ``cwt`` with ``CWTConfig(precision="fast")`` on a seeded 2^20-point
+  signal and the bench pipeline at ``fast``, each on ``cwt_stage_a_bf16`` +
+  ``cwt_stage_b_bf16`` alone, against the bf16 and the f32 plain versions;
+  the bf16 K1's T against the plain T rounded and the f32 K1's T rounded,
+  the bf16 K2 against its plain version and the f32 K2 on the widened T;
+  both bf16 kernels timed beside the f32 ones at the bench shape and at
+  every nfft of the column plans, and every tier of every size of
+  ``phase_kernels_vs_plain`` (``fast`` also against the bf16 plain version);
 * the statistics / XWT / WCT path (``xwt``, ``xwt_planar``,
   ``wct(sig=False)``, ``cwt_analysis``, ``xwt_analysis``, ``wct_analysis``)
   on the default route and on the ``PYCWT_TPU_SMALL_KERNEL=1`` route through
@@ -57,9 +66,10 @@ just after:
   of ``tools/tpu_relayout_experiment.py``): the entry point
   ``pycwt_torch.tools.relayout_experiment.run`` at 2^20 × 64 and 2^22 × 16,
   ``full`` bit for bit with ``cwt_stage_b``'s planes, ``memcopy`` exact and
-  the others within 1e-5 of their plain versions, each variant's registers
-  and spills, the library's kernels' registers and spills against
-  ``PTXAS_BEFORE``, and cuFFT's column ``ifft`` over T beside them.
+  the others within 1e-5 of their plain versions, each variant's and each
+  bf16-T instantiation's registers and spills, the library's f32 kernels'
+  registers and spills against ``PTXAS_BEFORE``, and cuFFT's column
+  ``ifft`` over T beside them.
 
 K1 and K2 are checked at every column radix plan from 16 to 2048 points
 (nfft 2^8 to 2^22), and lightly at 4096 and 8192 (2^24, 2^26).  It times K1
@@ -75,9 +85,10 @@ surfaces at N = 2^24, parity mode's 2^20 × 64 f64 transform and one cold
 and one warm ``sample_xwt.run`` on each route instead;
 ``--ab PARENT`` times the 4,000-point WCT and its smoothing, the
 300-member MC run, the 2^24 overlap-save CWT and the bench-shape pipeline
-for an unpacked parent tree and this one in turns.  Any failure raises:
-the exit code is then non-zero and no ``ok`` line is printed.  Without a
-CUDA device it exits non-zero at once.
+for an unpacked parent tree and this one in turns, and holds the two
+trees' ``highest`` and ``high`` outputs bit for bit (``_tier_digests``).
+Any failure raises: the exit code is then non-zero and no ``ok`` line is
+printed.  Without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -205,10 +216,56 @@ def _reset_counts():
         fc.KERNEL_LAUNCHES[name] = 0
 
 
-def _four_step_only(launches):
-    """Both four-step kernels launched and the direct one not."""
-    return (launches["cwt_stage_a"] > 0 and launches["cwt_stage_b"] > 0
-            and launches["cwt_direct"] == 0)
+def _four_step_only(launches, bf16=False):
+    """Both four-step kernels launched (their bf16-T forms if ``bf16``, and
+    then the f32 ones not) and the direct one not."""
+    a, b = ("cwt_stage_a_bf16", "cwt_stage_b_bf16") if bf16 else ("cwt_stage_a",
+                                                                  "cwt_stage_b")
+    return (launches[a] > 0 and launches[b] > 0 and launches["cwt_direct"] == 0
+            and (not bf16 or launches["cwt_stage_a"] == launches["cwt_stage_b"] == 0))
+
+
+def _bf16_plain(sr, si, sc, *, output, **kw):
+    """The ``fast`` tier's plain version: stage A's with T rounded to bf16,
+    then stage B's, in fused_cwt_planar's shapes ((B, S, ...) for (B, n)
+    spectra)."""
+    from pycwt_torch.ops import fused_cwt as fc
+
+    T = fc._stage_a_reference(sr, si, sc, t_dtype=torch.bfloat16, **kw)
+    out = fc._stage_b_reference(*T, nfft=kw["nfft"], output=output)
+    shape = (sr.shape[0], sc.shape[0]) + ((kw["nfft"],) if output != "power_sum" else ())
+    return tuple(o.reshape(shape) for o in out) if output == "planes" else out.reshape(shape)
+
+
+def _ulps(a, b):
+    """bf16 units in the last place between ``a`` and ``b``, elementwise
+    (the distance of their bit patterns in the order of the values)."""
+    def key(x):
+        bits = x.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (key(a) - key(b)).abs()
+
+
+def _spacing(x):
+    """The bf16 spacing at |x| (x bf16): 2^(e - 8) for |x| in [2^(e-1),
+    2^e), 0 at 0."""
+    _, e = torch.frexp(x.float())
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                                                e - 8))
+
+
+def _t16_vs_plain(t16, plain32, scale):
+    """cwt_stage_a_bf16's T plane ``t16`` against the plain f32 T plane
+    rounded to bf16: (elements that differ, elements more than one bf16 ulp
+    apart, max |difference| less one ulp and the f32 T's own 1e-5 of
+    ``scale`` = max|T|; at most 0 when every element is within one ulp, or,
+    far below max|T|, within the f32 T's error beyond it)."""
+    pp = plain32.to(torch.bfloat16)
+    gap = (t16.float() - pp.float()).abs()
+    room = torch.maximum(_spacing(t16), _spacing(pp)) + 1e-5 * scale
+    return (int((t16 != pp).sum()), int((_ulps(t16, pp) > 1).sum()),
+            float((gap - room).max()))
 
 
 def phase_device():
@@ -228,7 +285,8 @@ def phase_device():
 def _ptxas_usage(out):
     """(kernel, registers and spills) of each entry function in ``nvcc
     -Xptxas -v`` output, the kernel named with its template arguments:
-    ``cwt_stage_b<10>`` for the kernel every caller runs,
+    ``cwt_stage_b<10>`` for the f32 kernel every caller but ``fast`` runs,
+    ``cwt_stage_b<10, bf16>`` for its bf16-T instantiation,
     ``cwt_stage_b<10, memcopy>`` for an ablation variant."""
     from pycwt_torch.ops import fused_cwt as fc
 
@@ -243,6 +301,8 @@ def _ptxas_usage(out):
             args = [k.group(2)] if k and k.group(2) else []
             if k and k.group(3) not in (None, "0"):
                 args.append(variant[k.group(3)])
+            if k and "__nv_bfloat16" in m.group(1):
+                args.append("bf16")
             name = (k.group(1) + (f"<{', '.join(args)}>" if args else "")
                     if k else m.group(1))
             rows.append([name, ""])
@@ -271,7 +331,8 @@ def phase_build():
 
 
 #: (registers, spill-store bytes, spill-load bytes) of every kernel
-#: instantiation before cwt_stage_b's ablation variants were added, as
+#: instantiation before cwt_stage_b's ablation variants and the bf16-T
+#: instantiations were added, as
 #: ``nvcc -Xptxas -v`` of release PTXAS_RELEASE printed them for the
 #: unchanged sources on an NVIDIA H100 80GB HBM3; the kernels the library
 #: runs must keep them.
@@ -325,14 +386,16 @@ def _inputs(nfft, half, B, S, seed):
 
 
 def phase_kernels_vs_plain():
-    """Every size, mother, spectrum, output and tier against the plain
-    version; B = 2 against two single-signal calls, bit for bit; the planes
-    of the kernels and of the f32 plain version against the plain version in
-    f64."""
+    """Every size, mother, spectrum, output and tier against the f32 plain
+    version, and ``fast`` (its bf16 T) also against the bf16 plain version;
+    B = 2 against two single-signal calls of the same tier, bit for bit;
+    the `highest` planes of the kernels and of the f32 plain version against
+    the plain version in f64."""
     import pycwt_torch as pt
     from pycwt_torch.ops import fused_cwt as fc
 
     worst = {tier: 0.0 for tier in TIER_BOUND}
+    worst["fast_vs_bf16_plain"] = 0.0
     worst_at = ""
     vs_f64 = {"kernels": 0.0, "plain": 0.0}
     mothers = [pt.Morlet(6), pt.Paul(4), pt.DOG(2), pt.DOG(6)]
@@ -347,35 +410,43 @@ def phase_kernels_vs_plain():
                     sr.double(), si.double(), sc.double(), **kw))
                 for output in OUTPUTS:
                     ref = fc._epilogue(rr, ri, output)
+                    plain16 = _bf16_plain(sr, si, sc, output=output, **kw)
                     for tier in TIER_BOUND:
                         got = fc.fused_cwt_planar(sr, si, sc, output=output,
                                                   precision=tier, **kw)
+                        refs = [(tier, (rr, ri) if output == "planes" else ref)]
+                        if tier == "fast":
+                            refs.append(("fast_vs_bf16_plain", plain16))
+                        for key, want in refs:
+                            if output == "planes":
+                                err = max(float((got[0] - want[0]).abs().max()),
+                                          float((got[1] - want[1]).abs().max())) / scale_w
+                            else:
+                                err = float((got - want).abs().max() / want.abs().max())
+                            check(math.isfinite(err) and err < TIER_BOUND[tier],
+                                  f"{nfft} {m} half={half} {output} {key}: {err}")
+                            if err > worst[key]:
+                                worst[key] = err
+                                worst_at = f"nfft {nfft} {m} half={half} {output}"
+                        if output == "planes" and tier == "highest":
+                            for key, w in (("kernels", got), ("plain", (rr, ri))):
+                                e = float((torch.complex(*w).to(t64.dtype) - t64).abs().max()
+                                          / t64.abs().max())
+                                vs_f64[key] = max(vs_f64[key], e)
+                        singles = [fc.fused_cwt_planar(sr[b], si[b], sc, output=output,
+                                                       precision=tier, **kw)
+                                   for b in range(2)]
                         if output == "planes":
-                            err = max(float((got[0] - rr).abs().max()),
-                                      float((got[1] - ri).abs().max())) / scale_w
+                            same = all(torch.equal(got[i][b], singles[b][i])
+                                       for b in range(2) for i in range(2))
                         else:
-                            err = float((got - ref).abs().max() / ref.abs().max())
-                        check(math.isfinite(err) and err < TIER_BOUND[tier],
-                              f"{nfft} {m} half={half} {output} {tier}: {err}")
-                        if err > worst[tier]:
-                            worst[tier] = err
-                            worst_at = f"nfft {nfft} {m} half={half} {output}"
-                    if output == "planes":
-                        for key, w in (("kernels", got), ("plain", (rr, ri))):
-                            e = float((torch.complex(*w).to(t64.dtype) - t64).abs().max()
-                                      / t64.abs().max())
-                            vs_f64[key] = max(vs_f64[key], e)
-                    singles = [fc.fused_cwt_planar(sr[b], si[b], sc, output=output, **kw)
-                               for b in range(2)]
-                    if output == "planes":
-                        same = all(torch.equal(got[i][b], singles[b][i])
-                                   for b in range(2) for i in range(2))
-                    else:
-                        same = all(torch.equal(got[b], singles[b]) for b in range(2))
-                    check(same, f"batch != singles at {nfft} {m} {output}")
+                            same = all(torch.equal(got[b], singles[b]) for b in range(2))
+                        check(same, f"batch != singles at {nfft} {m} {output} {tier}")
+                    del plain16
         log(f"kernels vs plain, nfft={nfft}: ok (worst so far {worst}, at {worst_at}; "
             f"planes vs the f64 plain version: {vs_f64})")
-    check(_four_step_only(fc.KERNEL_LAUNCHES),
+    check(_four_step_only(fc.KERNEL_LAUNCHES) and fc.KERNEL_LAUNCHES["cwt_stage_a_bf16"] > 0
+          and fc.KERNEL_LAUNCHES["cwt_stage_b_bf16"] > 0,
           f"kernel counters did not advance: {fc.KERNEL_LAUNCHES}")
     return worst, vs_f64
 
@@ -383,7 +454,8 @@ def phase_kernels_vs_plain():
 def phase_large_columns():
     """cwt_stage_a/cwt_stage_b on 4096- and 8192-point columns (nfft 2^24 and
     2^26): one signal, one scale, Morlet-6, planes, against the plain
-    version at the `highest` bound."""
+    version at the `highest` bound; their bf16-T forms (`fast`) against the
+    bf16 plain version at the `fast` bound."""
     import pycwt_torch as pt
     from pycwt_torch.ops import fused_cwt as fc
 
@@ -391,18 +463,23 @@ def phase_large_columns():
     for nfft in LARGE_SIZES:
         sr, si, sc = _inputs(nfft, True, 1, 1, seed=nfft)
         kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0)
-        rr, ri = fc._fused_cwt_planar_reference(sr, si, sc, **kw)
-        scale_w = float(torch.sqrt(rr * rr + ri * ri).max())
-        _reset_counts()
-        wr, wi = fc.fused_cwt_planar(sr, si, sc, precision="highest", **kw)
-        check(_four_step_only(fc.KERNEL_LAUNCHES), f"2^{nfft.bit_length() - 1}: "
-              f"{fc.KERNEL_LAUNCHES}")
-        err = max(float((wr - rr).abs().max()), float((wi - ri).abs().max())) / scale_w
-        check(math.isfinite(err) and err < TIER_BOUND["highest"], f"nfft {nfft}: {err}")
-        errs[nfft] = err
-        del rr, ri, wr, wi
-    log("large columns, planes vs plain (of max|W|): " +
-        ", ".join(f"nfft 2^{n.bit_length() - 1} {e:.3e}" for n, e in errs.items()))
+        for tier in ("highest", "fast"):
+            if tier == "fast":
+                rr, ri = _bf16_plain(sr, si, sc, output="planes", **kw)
+            else:
+                rr, ri = fc._fused_cwt_planar_reference(sr, si, sc, **kw)
+            scale_w = float(torch.sqrt(rr * rr + ri * ri).max())
+            _reset_counts()
+            wr, wi = fc.fused_cwt_planar(sr, si, sc, precision=tier, **kw)
+            check(_four_step_only(fc.KERNEL_LAUNCHES, bf16=tier == "fast"),
+                  f"2^{nfft.bit_length() - 1} {tier}: {fc.KERNEL_LAUNCHES}")
+            err = max(float((wr - rr).abs().max()), float((wi - ri).abs().max())) / scale_w
+            check(math.isfinite(err) and err < TIER_BOUND[tier],
+                  f"nfft {nfft} {tier}: {err}")
+            errs[f"2^{nfft.bit_length() - 1} {tier}"] = err
+            del rr, ri, wr, wi
+    log("large columns, planes vs plain (of max|W|; fast against the bf16 plain "
+        "version): " + ", ".join(f"nfft {k} {e:.3e}" for k, e in errs.items()))
     return errs
 
 
@@ -440,13 +517,16 @@ def phase_public_path():
         f"(bound 5e-3), icwt_planar SNR {snr:.1f} dB, launches {launches}")
 
 
-def _bounds(nfft, S, n_in, R1, R2):
+def _bounds(nfft, S, n_in, R1, R2, t_bytes=4, output="power_sum"):
     """(bytes, ops) of each kernel at this shape: inputs read once, outputs
-    written once; radix-2 FFT at 5·R·log2 R flops, complex multiplies at 6."""
+    written once, T's two planes at ``t_bytes`` an element (2 for the bf16 T
+    of ``fast``), stage B's ``output``; radix-2 FFT at 5·R·log2 R flops,
+    complex multiplies at 6."""
     rows_a = n_in // R1
-    a_bytes = 2 * n_in * 4 + S * 4 + 2 * S * nfft * 4
+    t_total = 2 * S * nfft * t_bytes
+    a_bytes = 2 * n_in * 4 + S * 4 + t_total
     a_ops = S * (rows_a * R1 * 6 + R1 * 5 * R2 * math.log2(R2) + nfft * 6)
-    b_bytes = 2 * S * nfft * 4 + S * 4
+    b_bytes = t_total + {"power_sum": S, "power": S * nfft, "planes": 2 * S * nfft}[output] * 4
     b_ops = S * (R2 * 5 * R1 * math.log2(R1) + nfft * 5)
     return (a_bytes, a_ops), (b_bytes, b_ops)
 
@@ -537,6 +617,7 @@ def phase_bench_shape():
     bound_a, by_a = _bound_ms(a_bytes, a_ops)
     bound_b, by_b = _bound_ms(b_bytes, b_ops)
     rate = N0 * S / (ms_pipe * 1e-3)
+    fast = _bench_fast_tier(x, scales, kw, (sr, si), ms_pipe, dev_pipe)
     log(f"bench shape N=2^20 S=64 Morlet-6 power_sum tier={DEFAULT.precision}: "
         f"pipeline {ms_pipe:.4f} ms ({rate:.4e} sample-scales/s; device busy "
         f"{dev_pipe:.4f} ms per call, {100 * dev_pipe / ms_pipe:.1f} %), "
@@ -549,7 +630,157 @@ def phase_bench_shape():
         plain_a=plain_a, plain_b=plain_b,
         bound_a=bound_a, by_a=by_a, bound_b=bound_b, by_b=by_b, err_a=err_a,
         err_b=err_b, tol_a=tol_a, tol_b=tol_b, lib_ms=lib_ms, ms_pipe=ms_pipe,
-        plain_pipe=plain_pipe, rate=rate, bytes_a=a_bytes, bytes_b=b_bytes)
+        plain_pipe=plain_pipe, rate=rate, bytes_a=a_bytes, bytes_b=b_bytes, fast=fast)
+
+
+def _bench_fast_tier(x, scales, kw, spec, ms_pipe_high, dev_pipe_high):
+    """The ``fast`` tier at the bench shape: the pipeline
+    ``fft_of_real_planar(half=True)`` → ``fused_cwt_planar(precision="fast",
+    output="power_sum")`` driven with the counters set to 0 just before and
+    read just after (the bf16 instantiations only), against the bf16 and
+    the f32 plain versions; then cwt_stage_a_bf16's T element by element
+    against the plain T rounded (one bf16 ulp, or the f32 T's own error
+    beyond it) and against the f32 kernel's T rounded (bit for bit),
+    cwt_stage_b_bf16 on it against its plain version (1e-5 of max|out|) and
+    against cwt_stage_b on the widened T (planes and |W|² bit for bit, the
+    power sums within 1e-6); each bf16 kernel timed beside its f32 form, in
+    turns, with its 2-byte-T bound."""
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+
+    N0, S, bf16 = kw["nfft"], scales.shape[0], torch.bfloat16
+
+    def pipeline():
+        sr, si = fft_of_real_planar(x, N0, half=True)
+        return fc.fused_cwt_planar(sr, si, scales, precision="fast",
+                                   output="power_sum", **kw)
+
+    _reset_counts()
+    pw = pipeline()
+    torch.cuda.synchronize()
+    launches = dict(fc.KERNEL_LAUNCHES)
+    check(_four_step_only(launches, bf16=True),
+          f"the fast pipeline did not launch the bf16 kernels alone: {launches}")
+    sr, si = spec
+    check(pw.shape == (S,) and bool(torch.isfinite(pw).all()), "fast power_sum shape/finite")
+    ref32 = fc._fused_cwt_planar_reference(sr, si, scales, output="power_sum", **kw)
+    ref16 = _bf16_plain(sr[None], si[None], scales, output="power_sum", **kw)[0]
+    e_pipe32 = float((pw - ref32).abs().max() / ref32.abs().max())
+    e_pipe16 = float((pw - ref16).abs().max() / ref16.abs().max())
+    check(e_pipe32 < TIER_BOUND["fast"] and e_pipe16 < TIER_BOUND["fast"],
+          f"fast pipeline vs the f32 / bf16 plain versions: {e_pipe32}, {e_pipe16}")
+    del ref32, ref16
+
+    X2 = (sr[None], si[None])
+    T16 = fc.stage_a(*X2, scales, t_dtype=bf16, **kw)
+    T32 = fc.stage_a(*X2, scales, **kw)
+    differ, beyond, over, err_a = 0, 0, -math.inf, 0.0
+    plain = fc._stage_a_reference(*X2, scales, **kw)
+    scale_a = float(torch.sqrt(plain[0] ** 2 + plain[1] ** 2).max())
+    for i in range(2):
+        d, b, o = _t16_vs_plain(T16[i], plain[i], scale_a)
+        differ, beyond, over = differ + d, beyond + b, max(over, o)
+        err_a = max(err_a, float((T16[i].float() - plain[i].to(bf16).float()).abs().max()))
+        check(torch.equal(T16[i], T32[i].to(bf16)),
+              "cwt_stage_a_bf16's T is not cwt_stage_a's T rounded")
+    del plain
+    share, beyond = differ / (2 * T16[0].numel()), beyond / (2 * T16[0].numel())
+    check(over <= 0, f"cwt_stage_a_bf16's T is {over} beyond one bf16 ulp and the f32 "
+          "T's 1e-5 of max|T| from the plain T rounded")
+    out_b = fc.stage_b(*T16, nfft=N0, output="power_sum")
+    ref_b = fc._stage_b_reference(*T16, nfft=N0, output="power_sum")
+    err_b = float((out_b - ref_b).abs().max())
+    tol_b = 1e-5 * float(ref_b.abs().max())
+    check(err_b <= tol_b, f"cwt_stage_b_bf16 vs plain: {err_b} > {tol_b}")
+    # per column the same arithmetic as cwt_stage_b on the widened T; the
+    # power sums group the columns by the wide blocks' 16, not by 8
+    for output in OUTPUTS:
+        got = fc.stage_b(*T16, nfft=N0, output=output)
+        wide = fc.stage_b(*(p.float() for p in T16), nfft=N0, output=output)
+        if output == "power_sum":
+            same = float((got - wide).abs().max()) <= 1e-6 * float(wide.abs().max())
+        else:
+            same = (all(torch.equal(g, w) for g, w in zip(got, wide)) if output == "planes"
+                    else torch.equal(got, wide))
+        check(same, f"cwt_stage_b_bf16 != cwt_stage_b on the widened T ({output})")
+        del got, wide
+    del ref_b
+
+    # in turns: f32, bf16, bf16, f32 (CUDA events, then profiler device time)
+    calls = {"a": lambda: fc.stage_a(*X2, scales, **kw),
+             "a16": lambda: fc.stage_a(*X2, scales, t_dtype=bf16, **kw),
+             "b": lambda: fc.stage_b(*T32, nfft=N0, output="power_sum"),
+             "b16": lambda: fc.stage_b(*T16, nfft=N0, output="power_sum")}
+    ms = {k: [] for k in calls}
+    dev = {k: [] for k in calls}
+    for order in (("a", "a16", "b", "b16"), ("a16", "a", "b16", "b")):
+        for k in order:
+            ms[k].append(time_ms(calls[k]))
+            dev[k].append(device_ms(calls[k], calls=20))
+    ms = {k: float(np.median(v)) for k, v in ms.items()}
+    dev = {k: float(np.median(v)) for k, v in dev.items()}
+    ms_pipe = time_ms(pipeline)
+    dev_pipe = device_ms(pipeline, calls=20)
+    plain_a = time_ms(lambda: fc._stage_a_reference(*X2, scales, t_dtype=bf16, **kw),
+                      runs=10, warmup=1)
+    plain_b = time_ms(lambda: fc._stage_b_reference(*T16, nfft=N0, output="power_sum"),
+                      runs=10, warmup=1)
+    del T16, T32
+    R1, R2 = fc._nfft_factors(N0)
+    (a_bytes, a_ops), (b_bytes, b_ops) = _bounds(N0, S, sr.shape[-1], R1, R2, t_bytes=2)
+    bound_a, by_a = _bound_ms(a_bytes, a_ops)
+    bound_b, by_b = _bound_ms(b_bytes, b_ops)
+    log(f"bench shape, fast tier (bf16 T): pipeline {ms_pipe:.4f} ms (device busy "
+        f"{dev_pipe:.4f}; high: {ms_pipe_high:.4f} / {dev_pipe_high:.4f}), launches "
+        f"{launches}; vs the f32 / bf16 plain versions {e_pipe32:.3e} / {e_pipe16:.3e}; "
+        f"cwt_stage_a_bf16 device {dev['a16']:.4f} ms (f32 {dev['a']:.4f}; bound "
+        f"{bound_a:.4f}, {100 * bound_a / dev['a16']:.1f} %), cwt_stage_b_bf16 device "
+        f"{dev['b16']:.4f} ms (f32 {dev['b']:.4f}; bound {bound_b:.4f}, "
+        f"{100 * bound_b / dev['b16']:.1f} %); T: {share:.3e} of elements differ from "
+        f"the plain rounding, {beyond:.3e} by more than one ulp; K2 vs plain {err_b:.3e} "
+        f"(tolerance {tol_b:.3e})")
+    return dict(launches=launches, e_pipe32=e_pipe32, e_pipe16=e_pipe16, ms=ms, dev=dev,
+                ms_pipe=ms_pipe, dev_pipe=dev_pipe, plain_a=plain_a, plain_b=plain_b,
+                bound_a=bound_a, by_a=by_a, bound_b=bound_b, by_b=by_b, bytes_a=a_bytes,
+                bytes_b=b_bytes, err_a=err_a, share=share, beyond=beyond, err_b=err_b,
+                tol_b=tol_b, rate=N0 * S / (ms_pipe * 1e-3))
+
+
+def phase_public_fast(card):
+    """``pt.cwt`` with ``CWTConfig(precision="fast")`` on a seeded 2^20-point
+    signal (the bench grid: dj 1/4, s0 2, 64 scales), driven with the
+    counters set to 0 just before and read just after: the bf16
+    instantiations alone, once each.  W against the bf16 plain version and
+    the f32 plain version on the same f64-rounded spectrum, within the
+    tier's 2e-2 of max|W|."""
+    import pycwt_torch as pt
+    from pycwt_torch.config import CWTConfig
+    from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops.fft import _spectrum_f64
+
+    n0 = 1 << 20
+    x = np.random.default_rng(20).standard_normal(n0)
+    _reset_counts()
+    W, sj, *_ = pt.cwt(x, 1.0, dj=0.25, s0=2.0, J=63, config=CWTConfig(precision="fast"))
+    launches = dict(fc.KERNEL_LAUNCHES)
+    check(_four_step_only(launches, bf16=True) and launches["cwt_stage_a_bf16"] == 1,
+          f"cwt at fast did not launch the bf16 kernels once each: {launches}")
+    check(W.shape == (64, n0) and np.isfinite(W).all(), "fast cwt shape/finite")
+    spec = _spectrum_f64(torch.tensor(x, device="cuda"), n0)
+    sr, si = spec.real.contiguous()[None], spec.imag.contiguous()[None]
+    sc = torch.tensor(sj, dtype=torch.float32, device="cuda")
+    kw = dict(mother=pt.Morlet(6), nfft=n0, dt=1.0)
+    Wd = torch.tensor(W, device="cuda")
+    errs = {}
+    for key, (wr, wi) in (("bf16_plain", _bf16_plain(sr, si, sc, output="planes", **kw)),
+                          ("f32_plain", fc._fused_cwt_planar_reference(sr, si, sc, **kw))):
+        ref = torch.complex(wr[0], wi[0])
+        errs[key] = float((Wd - ref).abs().max() / ref.abs().max())
+        del ref, wr, wi
+    check(all(e < TIER_BOUND["fast"] for e in errs.values()), f"fast cwt: {errs}")
+    log(f"[{card}] public cwt at fast, 2^20 x 64: launches {launches}; W vs the bf16 / "
+        f"f32 plain versions {errs['bf16_plain']:.3e} / {errs['f32_plain']:.3e} of max|W|")
+    return dict(launches=launches, errs=errs)
 
 
 def phase_gradient():
@@ -756,7 +987,8 @@ def phase_wct_timing():
     time, then the 300-member MC run (default route, median of 5),
     ``cwt_overlap_save_planar`` at 2^24 × 64 scales (median of 3) and the
     bench-shape pipeline (median of 21, and its device time), for the
-    ``pycwt_torch`` of the tree on ``sys.path``; one JSON line."""
+    ``pycwt_torch`` of the tree on ``sys.path``, with the digests of
+    :func:`_tier_digests`; one JSON line."""
     import pycwt_torch as pt
     from pycwt_torch import coherence as tco
     from pycwt_torch.ops import overlap as tov
@@ -792,18 +1024,57 @@ def phase_wct_timing():
     pipeline = _bench_pipeline()
     out["bench_pipeline_ms"] = time_ms(pipeline, runs=21, warmup=3)
     out["bench_pipeline_device_ms"] = device_ms(pipeline, calls=20)
+    out["digests"] = _tier_digests()
     log("WCT timing " + json.dumps(out))
+    return out
+
+
+def _tier_digests():
+    """sha256 (16 hex digits) of ``fused_cwt_planar``'s every output at the
+    ``highest`` and ``high`` tiers, on seeded inputs at nfft 2^14, 2^20 and
+    2^22 (Morlet-6 half spectrum, DOG(2) full; B = 2, 4 scales): what
+    ``--ab`` holds bit for bit against a parent tree."""
+    import hashlib
+
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+
+    out = {}
+    for nfft in (1 << 14, 1 << 20, 1 << 22):
+        for m, half in ((pt.Morlet(6), True), (pt.DOG(2), False)):
+            sr, si, sc = _inputs(nfft, half, 2, 4, seed=nfft)
+            for tier in ("highest", "high"):
+                for output in OUTPUTS:
+                    got = fc.fused_cwt_planar(sr, si, sc, mother=m, nfft=nfft, dt=1.0,
+                                              precision=tier, output=output)
+                    h = hashlib.sha256()
+                    for t in got if isinstance(got, tuple) else (got,):
+                        h.update(t.cpu().numpy().tobytes())
+                    key = f"2^{nfft.bit_length() - 1} {type(m).__name__} {tier} {output}"
+                    out[key] = h.hexdigest()[:16]
     return out
 
 
 def phase_ab(parent: str):
     """``--ab PARENT``: :func:`phase_wct_timing` for the tree at PARENT (an
     unpacked parent commit) and for this one, in turns (parent, this, this,
-    parent), each in a process of its own that builds its tree's kernels."""
+    parent), each in a process of its own that builds its tree's kernels;
+    then the `highest` and `high` outputs' digests of every turn, which
+    must agree bit for bit."""
     here = os.path.dirname(os.path.abspath(__file__))
+    digests = []
     for tree in (parent, here, here, parent):
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--time-wct",
-                        os.path.abspath(tree)], check=True, timeout=600)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-wct",
+                              os.path.abspath(tree)], check=True, timeout=600,
+                             capture_output=True, text=True)
+        sys.stdout.write(res.stdout)
+        sys.stderr.write(res.stderr)
+        line = [ln for ln in res.stdout.splitlines() if ln.startswith("WCT timing ")][-1]
+        digests.append(json.loads(line[len("WCT timing "):])["digests"])
+    check(all(d == digests[0] for d in digests),
+          "the highest/high outputs differ between the turns: " +
+          json.dumps([{k: d[k] for k in d if d[k] != digests[0].get(k)} for d in digests]))
+    log(f"--ab: {len(digests[0])} highest/high outputs bit for bit in all four turns")
 
 
 def phase_wct_trace(calls=5):
@@ -955,7 +1226,10 @@ def phase_column_plans():
     """Counterpart of tools/tpu_radix_experiment.py: at each nfft of SIZES,
     the radix plans of cwt_stage_a's length-R2 and cwt_stage_b's length-R1
     columns beside each kernel's device time per call (one half spectrum,
-    16 scales, Morlet-6, planes)."""
+    16 scales, Morlet-6, planes), for the f32 T and, in turns, the bf16 T
+    of ``fast`` (cwt_stage_a_bf16, cwt_stage_b_bf16), each with its bound
+    (T at 4 or 2 bytes; W planes out); cwt_stage_b's two forms also in
+    ``power_sum``, where T's loads alone move the bytes."""
     import pycwt_torch as pt
     from pycwt_torch.ops import fused_cwt as fc
 
@@ -965,17 +1239,40 @@ def phase_column_plans():
         sr, si, sc = _inputs(nfft, True, 1, 16, seed=nfft)
         kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0)
         T = fc.stage_a(sr, si, sc, **kw)
+        T16 = fc.stage_a(sr, si, sc, t_dtype=torch.bfloat16, **kw)
         calls = 50 if nfft <= 1 << 16 else 10
-        rows[nfft] = dict(
-            plan_a=fc._column_radix_plan(R2), plan_b=fc._column_radix_plan(R1),
-            cols_a=fc._tile_cols(R2, R1), cols_b=fc._tile_cols(R1, R2),
-            a=device_ms(lambda: fc.stage_a(sr, si, sc, **kw), calls=calls),
-            b=device_ms(lambda: fc.stage_b(*T, nfft=nfft, output="planes"), calls=calls))
-        del T
-    log("column plans, device ms per call (one half spectrum, 16 scales, planes): " +
+        row = dict(plan_a=fc._column_radix_plan(R2), plan_b=fc._column_radix_plan(R1),
+                   cols_a=fc._tile_cols(R2, R1), cols_b=fc._tile_cols(R1, R2),
+                   cols_b16=fc._stage_b_cols(R1, R2, torch.bfloat16))
+        fns = {"a": lambda: fc.stage_a(sr, si, sc, **kw),
+               "a16": lambda: fc.stage_a(sr, si, sc, t_dtype=torch.bfloat16, **kw),
+               "b": lambda: fc.stage_b(*T, nfft=nfft, output="planes"),
+               "b16": lambda: fc.stage_b(*T16, nfft=nfft, output="planes"),
+               "b_ps": lambda: fc.stage_b(*T, nfft=nfft, output="power_sum"),
+               "b16_ps": lambda: fc.stage_b(*T16, nfft=nfft, output="power_sum")}
+        times = {k: [] for k in fns}
+        for order in (("a", "a16", "b", "b16", "b_ps", "b16_ps"),
+                      ("a16", "a", "b16", "b", "b16_ps", "b_ps")):
+            for k in order:
+                times[k].append(device_ms(fns[k], calls=calls))
+        row.update({k: float(np.median(v)) for k, v in times.items()})
+        for t_bytes, suffix in ((4, ""), (2, "16")):
+            for output, tail in (("planes", ""), ("power_sum", "_ps")):
+                (ab, ao), (bb, bo) = _bounds(nfft, 16, nfft // 2, R1, R2, t_bytes=t_bytes,
+                                             output=output)
+                row["bound_a" + suffix] = _bound_ms(ab, ao)[0]
+                row["bound_b" + suffix + tail] = _bound_ms(bb, bo)[0]
+        rows[nfft] = row
+        del T, T16
+    log("column plans, device ms per call (one half spectrum, 16 scales, planes; "
+        "f32 T, then bf16 T, each / its bound): " +
         "; ".join(f"2^{n.bit_length() - 1}: cwt_stage_a R2 {'·'.join(map(str, r['plan_a']))} "
-                  f"x{r['cols_a']} {r['a']:.4f}, cwt_stage_b R1 "
-                  f"{'·'.join(map(str, r['plan_b']))} x{r['cols_b']} {r['b']:.4f}"
+                  f"x{r['cols_a']} {r['a']:.4f} / {r['bound_a']:.4f}, bf16 {r['a16']:.4f} / "
+                  f"{r['bound_a16']:.4f}; cwt_stage_b R1 {'·'.join(map(str, r['plan_b']))} "
+                  f"x{r['cols_b']} {r['b']:.4f} / {r['bound_b']:.4f}, bf16 "
+                  f"x{r['cols_b16']} {r['b16']:.4f} / {r['bound_b16']:.4f}; power_sum "
+                  f"{r['b_ps']:.4f} / {r['bound_b_ps']:.4f}, bf16 {r['b16_ps']:.4f} / "
+                  f"{r['bound_b16_ps']:.4f}"
                   for n, r in rows.items()))
     return rows
 
@@ -1928,8 +2225,8 @@ def phase_coherence_gradient():
         a = y1.clone().requires_grad_(True)
         (gr,) = torch.autograd.grad(sup.reference_loss(y2, scales, nfft)(a), a)
         err = float((gk - gr).abs().max() / gr.abs().max())
-        want = ({"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 2} if small else
-                {"cwt_stage_a": 2, "cwt_stage_b": 2, "cwt_direct": 0})
+        want = dict.fromkeys(launches, 0)
+        want.update({"cwt_direct": 2} if small else {"cwt_stage_a": 2, "cwt_stage_b": 2})
         check(launches == want, f"{name} gradient route launched {launches}")
         check(bool(torch.isfinite(gk).all()) and err <= 2e-4,
               f"{name} planar _wct_core gradient vs plain: {err}")
@@ -2645,26 +2942,29 @@ RELAYOUT_BOUND = 1e-5
 
 
 def _relayout_ptxas(usage):
-    """Each ablation variant's registers and spills, and the check that the
-    kernels the library runs kept PTXAS_BEFORE's (under the same nvcc)."""
+    """Each ablation variant's and each bf16-T instantiation's registers and
+    spills, and the check that the f32 kernels the library runs kept
+    PTXAS_BEFORE's (under the same nvcc)."""
     release = _nvcc_release()
+    bf16 = {k: _ptxas_figures(line) for k, line in usage.items() if k.endswith(", bf16>")}
     for kernel, line in usage.items():
         if "," in kernel:
-            log(f"  ablation {kernel}: {line}")
+            log(f"  {'bf16 T' if kernel in bf16 else 'ablation'} {kernel}: {line}")
     if not usage:
         log("  ptxas figures: libraries loaded from an earlier build, not compared")
-        return {"nvcc": release, "compared": 0}
+        return {"nvcc": release, "compared": 0, "bf16": bf16}
     if release != PTXAS_RELEASE:
         log(f"  ptxas figures recorded under nvcc {PTXAS_RELEASE}, this is {release}: "
             "not compared")
-        return {"nvcc": release, "compared": 0}
+        return {"nvcc": release, "compared": 0, "bf16": bf16}
     for kernel, want in PTXAS_BEFORE.items():
         check(kernel in usage, f"ptxas printed nothing for {kernel}")
         got = _ptxas_figures(usage[kernel])
         check(got == want, f"{kernel}: registers and spills {got}, before {want}")
-    log(f"  ptxas: all {len(PTXAS_BEFORE)} kernels the library runs keep their "
+    check(len(bf16) == 20, f"ptxas printed {len(bf16)} bf16-T instantiations, not 20")
+    log(f"  ptxas: all {len(PTXAS_BEFORE)} f32 kernels the library runs keep their "
         "registers and spills")
-    return {"nvcc": release, "compared": len(PTXAS_BEFORE)}
+    return {"nvcc": release, "compared": len(PTXAS_BEFORE), "bf16": bf16}
 
 
 def phase_relayout(card, usage):
@@ -2742,6 +3042,7 @@ def main():
     worst, four_step_vs_f64 = phase_kernels_vs_plain()
     large = phase_large_columns()
     phase_public_path()
+    public_fast = phase_public_fast(card)
     bench = phase_bench_shape()
     phase_gradient()
     worst_direct, direct_vs_f64 = phase_direct_vs_plain()
@@ -2792,6 +3093,34 @@ def main():
              bound_ms=bench["bound_b"], bound_by=bench["by_b"],
              bound_share=bench["bound_b"] / bench["dev_b"],
              bound_bytes=bench["bytes_b"], **common),
+    ]
+    fast = bench["fast"]
+    for stage, tpu, line in (("a", "_make_kernel_a (K1)", 252),
+                             ("b", "_make_kernel_b (K2)", 289)):
+        kernels.append(dict(
+            name=f"cwt_stage_{stage}_bf16", route="cuda", source=KERNEL_SOURCE,
+            replaces=f"pycwt_tpu/ops/pallas_fft.py:{line}",
+            tpu_kernel=f"{tpu} with a bf16 T at precision='fast' (pallas_fft.py:699-705)",
+            launches=fast["launches"][f"cwt_stage_{stage}_bf16"],
+            cwt_fast_launches=public_fast["launches"][f"cwt_stage_{stage}_bf16"],
+            max_abs_err=fast["err_" + stage],
+            tolerance=("one bf16 ulp of the plain f32 T rounded, or the f32 T's 1e-5 of "
+                       "max|T| beyond it; bit for bit cwt_stage_a's T rounded"
+                       if stage == "a" else fast["tol_b"]),
+            t_elements_differing=fast["share"] if stage == "a" else None,
+            t_elements_beyond_one_ulp=fast["beyond"] if stage == "a" else None,
+            ms=fast["ms"][stage + "16"], device_ms=fast["dev"][stage + "16"],
+            f32_device_ms=fast["dev"][stage], plain_ms=fast["plain_" + stage],
+            bound_ms=fast["bound_" + stage], bound_by=fast["by_" + stage],
+            bound_share=fast["bound_" + stage] / fast["dev"][stage + "16"],
+            bound_bytes=fast["bytes_" + stage], library_ms=bench["lib_ms"],
+            library_call="as the f32 form: no PyTorch call computes a bf16-rounded T",
+            pipeline_vs_plain={"f32": fast["e_pipe32"], "bf16": fast["e_pipe16"]},
+            cwt_fast_vs_plain=public_fast["errs"],
+            max_rel_err_by_tier={"fast": worst["fast"],
+                                 "fast_vs_bf16_plain": worst["fast_vs_bf16_plain"]},
+            shape="N=2^20, S=64, Morlet-6, power_sum, precision='fast'", card=card))
+    kernels += [
         dict(name="cwt_direct", route="cuda", source=DIRECT_SOURCE,
              replaces="pycwt_tpu/ops/pallas_fft.py:360",
              tpu_kernel="_make_kernel_direct (K3)", launches=real["launches"],
@@ -2814,9 +3143,12 @@ def main():
                                     for route, r in pairs["routes"].items()}
         k["wct_matrix_analysis_launches"] = {
             kind: pairs[f"analysis_{kind}"]["launches"][name] for kind in ("cold", "warm")}
+        # the overlap surfaces run the default tier: K1/K2 with an f32 T
         k["overlap_2p24_launches"] = {
-            srf: (r["launches"] if name != "cwt_direct" else 0)
+            srf: (r["launches"] if name in ("cwt_stage_a", "cwt_stage_b") else 0)
             for srf, r in long["surfaces"].items()}
+        if name.endswith("_bf16"):
+            continue
         k["new_shapes_err_vs_plain"] = (
             {"wct_matrix (32, 110, 1024)": pairs["kernel_err"]["cwt_direct"]}
             if name == "cwt_direct" else
@@ -2863,6 +3195,14 @@ def main():
                         str(n): [r["direct"], r["four"], r["ifft"]] for n, r in sizes.items()},
                     "stage_a_vs_stage_b_device_ms": {
                         str(n): [r["a"], r["b"]] for n, r in plans.items()},
+                    "stage_a_vs_stage_b_bf16_device_ms_and_bounds": {
+                        str(n): {k: r[k] for k in (
+                            "a16", "b16", "b_ps", "b16_ps", "bound_a16", "bound_b16",
+                            "bound_b_ps", "bound_b16_ps")}
+                        for n, r in plans.items()},
+                    "fast_pipeline_ms": bench["fast"]["ms_pipe"],
+                    "fast_pipeline_device_ms": bench["fast"]["dev_pipe"],
+                    "fast_sample_scales_per_s": bench["fast"]["rate"],
                     "mc_300_members_ms": {k: r["ms"] for k, r in mc["routes"].items()},
                     "mc_peak_bytes_per_member": {
                         k: r["peak_per_member"] for k, r in mc["routes"].items()},

@@ -37,8 +37,11 @@ class CWTConfig:
         ("planar" on CUDA, "xla" on the CPU).
     precision:
         Tier of the fused CUDA kernels: ``"highest"`` | ``"high"`` |
-        ``"fast"``.  The kernels currently run the same f32 butterflies for
-        all three tiers, so every tier meets the strictest bound.
+        ``"fast"``.  ``highest`` and ``high`` keep the kernels'
+        intermediate T in f32 and meet the strictest bound; ``fast`` stores
+        T in bf16, as ``pycwt_tpu`` does, which halves its round trip
+        through device memory (within the tier's 2e-2 of max|W|).  The
+        butterflies are f32 at every tier.
     """
 
     pad_pow2: bool = True

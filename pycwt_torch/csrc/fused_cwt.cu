@@ -48,10 +48,42 @@
 //     bits as one signal at a time.
 // The cost left in the design is the round trip of T through device memory
 // (written by stage A, read by stage B): twice the bytes of a single pass.
+//
+// bf16 T (precision="fast"; pallas_fft.py:699-705).  The TPU package stores
+// T in bf16 at its fast tier: kernel A rounds its output (pallas_fft.py:
+// 280-283), kernel B widens it back to f32 (:305-306).  Here the element
+// type TT of T is a template parameter, float by default: the bf16
+// instantiations (entries cwt_stage_a_bf16, cwt_stage_b_bf16) write T with
+// __float2bfloat16_rn, round to nearest even as astype(jnp.bfloat16), and
+// widen it on load; every other operation is the f32 kernels' own, and the
+// float instantiations compile to the code they had before.  This halves
+// T's round trip: at N = 2^20, S = 64 stage A writes 268.4 MB of T and
+// stage B reads it, about 0.08 ms each at 3.35 TB/s.
+//   The trap is stage B's loads: a row of a column group is cols * 2 bytes,
+//   16 at R1 = 1024 (cols = 8) and 8 at R1 = 2048 (cols = 4), where 32-byte
+//   segments read T at 3.4 times the rate of 16-byte ones in planes mode.
+//   So at R1 = 1024 and 2048 the bf16 instantiations take blocks of 1024
+//   threads (StageB: 64 registers a thread still, one block an SM, the
+//   same 32 warps an SM as two f32 blocks), which hold twice the columns:
+//   16 at R1 = 1024, whose rows of T are then 32 bytes and read straight
+//   into registers, as the f32 kernel reads its 8; 8 at R1 = 2048, where a
+//   pair of blocks (a thread block cluster) stages its 16 columns: each
+//   block copies half of the rows, 32 bytes each, into shared memory after
+//   its FFT buffer with cp.async, and each reads its 8 columns from both
+//   halves, its own and its peer's (distributed shared memory), before its
+//   first pass; a block arrives at a cluster barrier once its reads are
+//   done and waits on it only before it exits.  Both also store W along t
+//   in rows of 16 or 8 floats (64 or 32 bytes), twice the f32 kernel's.
+//   ~142 KB a block at R1 = 1024, ~208 KB at 2048.  Elsewhere the f32
+//   tiles hold: cols >= 16 below R1 = 1024, and rows of 4 and 2 bytes above
+//   2048 (nfft >= 2^24).
 
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "fft_common.cuh"
 
@@ -62,6 +94,111 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kMinBlocks = 2;
 constexpr int kReduceThreads = 256;
+using bf16 = __nv_bfloat16;
+
+template <typename TT>
+constexpr bool kIsBf16 = std::is_same_v<TT, bf16>;
+
+// T's elements: f32 as they are, bf16 rounded to nearest even on the store
+// and widened (exactly) on the load.
+template <typename TT>
+__device__ __forceinline__ void store_t(TT* p, float x) {
+  if constexpr (kIsBf16<TT>) {
+    *p = __float2bfloat16_rn(x);
+  } else {
+    *p = x;
+  }
+}
+
+template <typename TT>
+__device__ __forceinline__ float load_t(const TT* p) {
+  if constexpr (kIsBf16<TT>) {
+    return __bfloat162float(*p);
+  } else {
+    return *p;
+  }
+}
+
+// Stage B's block: kThreads threads (kBlocksPerSM an SM) over `cols`
+// columns.  A bf16 T at R1 = 1024 and 2048 takes wide blocks of 1024
+// threads, kCols = 16384/R columns (16 and 8); at R1 = 2048 a pair of them,
+// a cluster, stages its 16 columns (the note at the top).  Every other
+// instantiation keeps the f32 kernel's 512 threads, two blocks an SM.
+template <int LOG_R, typename TT>
+struct StageB {
+  static constexpr bool kWide = kIsBf16<TT> && (LOG_R == 10 || LOG_R == 11);
+  static constexpr bool kPair = kWide && LOG_R == 11;
+  static constexpr int kThreads = kWide ? 2 * kMaxThreads : kMaxThreads;
+  static constexpr int kBlocksPerSM = kWide ? 1 : kMinBlocks;
+  static constexpr int kCols = (16 * kThreads) >> LOG_R;
+};
+
+// One asynchronous copy of 16 bytes from device to shared memory, both
+// 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// Waits for every copy this thread issued; a barrier then publishes them.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Bytes a pair's staged half-tile takes: [plane][R/2][16] bf16.
+template <int LOG_R>
+constexpr int kPairHalfBytes = 2 * (1 << LOG_R) / 2 * 16 * 2;
+
+// First float2 slot of a pair's half-tile: after the twiddles (tw slots)
+// and the FFT buffer, 16-byte aligned.
+__host__ __device__ inline int pair_half_slot(int tw, int cols, int ld) {
+  return (tw + cols * ld + 1) & ~1;
+}
+
+// v[r] = T[row, lt + r*R/16, c0 + j] of a wide block at R = 2048 (kPair):
+// the two blocks of the cluster own columns c0 and c0 + 8 of one 16-column
+// group.  Block `rank` copies rows [rank*R/2, (rank+1)*R/2) of all 16, both
+// planes, into `half` ([plane][R/2][16], 32-byte rows, 2 pieces of 16 bytes
+// by neighbouring threads), the cluster waits, then each reads its 8
+// columns: rows below R/2 (r < 8) from block 0's half, the others from
+// block 1's, and arrives at the cluster barrier that the kernel waits on
+// before it exits (a block's shared memory must outlive its peer's reads).
+template <int LOG_R, typename TT>
+__device__ __forceinline__ void load_pair(float2* v, TT* half, const TT* tr, const TT* ti,
+                                          long long first, int R2, int j, int lt, int tid) {
+  namespace cg = cooperative_groups;
+  constexpr int R = 1 << LOG_R;
+  constexpr int H = R / 2;
+  constexpr int TC = R / 16;
+  constexpr int C = StageB<LOG_R, TT>::kCols;
+  static_assert(StageB<LOG_R, TT>::kPair && 2 * C == 16 && 8 * TC == H,
+                "a pair stages 16 columns; rows r < 8 of a thread lie in the first half");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  // first: the offset of T[row, 0, c0] for this block; its group starts
+  // rank*C columns before, its half rank*H rows below
+  const long long base = first - rank * C + (long long)rank * H * R2;
+  for (int e = tid; e < 2 * H * 2; e += StageB<LOG_R, TT>::kThreads) {
+    const int part = e & 1;
+    const int pa = e >> 1;   // plane * H + (a - rank*H)
+    const int plane = pa >= H;
+    const TT* src = (plane ? ti : tr) + base + (long long)(pa - plane * H) * R2 + part * 8;
+    cp_async16(half + pa * 16 + part * 8, src);
+  }
+  cp_async_wait_all();
+  cluster.sync();   // both halves are in place
+  const TT* h0 = cluster.map_shared_rank(half, 0);
+  const TT* h1 = cluster.map_shared_rank(half, 1);
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const TT* h = r < 8 ? h0 : h1;
+    const int a = (lt + r * TC) & (H - 1);
+    v[r] = make_float2(load_t(h + a * 16 + rank * C + j),
+                       load_t(h + (H + a) * 16 + rank * C + j));
+  }
+  // this block's reads of both halves are done
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
 
 // e^{+2 pi i m / n} for 0 <= m < n, n a power of two, inv = 2/n.
 __device__ __forceinline__ float2 unit_root(int m, int n, float inv) {
@@ -78,11 +215,11 @@ __device__ __forceinline__ float2 unit_root(int m, int n, float inv) {
   return make_float2(c, s);
 }
 
-template <int LOG_R>
+template <int LOG_R, typename TT = float>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 cwt_stage_a_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                    long long x_stride, const float* __restrict__ scales,
-                   float* __restrict__ tr, float* __restrict__ ti,
+                   TT* __restrict__ tr, TT* __restrict__ ti,
                    int S, int R1, int rows, int log_cols, int ld,
                    int mother, float f0, int m, float cre, float cim, float dt,
                    float omega0) {
@@ -165,8 +302,8 @@ cwt_stage_a_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       if (r / NLO) w = cmul(w, hi[r / NLO]);
       const float2 z = cmul(v[q * RL + r], w);
       const int c = lt + q * TC + r * NSL;
-      tr[out + c] = z.x;
-      ti[out + c] = z.y;
+      store_t(tr + out + c, z.x);
+      store_t(ti + out + c, z.y);
     }
   }
 }
@@ -175,9 +312,11 @@ cwt_stage_a_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // cwt_stage_b_ablation, whose variants take stages out of this same body:
 // kNoTwiddle, kNoExchange and kButterflies out of column_stockham, kMemcopy
 // all of it (the first pass's loads go straight to the epilogue's stores).
-template <int LOG_R, int ABLATE = kFull>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-cwt_stage_b_kernel(const float* __restrict__ tr, const float* __restrict__ ti,
+// TT is T's element type; StageB sets the block for it.
+template <int LOG_R, int ABLATE = kFull, typename TT = float>
+__global__ void
+__launch_bounds__(StageB<LOG_R, TT>::kThreads, StageB<LOG_R, TT>::kBlocksPerSM)
+cwt_stage_b_kernel(const TT* __restrict__ tr, const TT* __restrict__ ti,
                    float* __restrict__ out0, float* __restrict__ out1,
                    int R2, int log_cols, int ld, int mode, float inv_n) {
   using P = ColumnPlan<LOG_R>;
@@ -200,14 +339,19 @@ cwt_stage_b_kernel(const float* __restrict__ tr, const float* __restrict__ ti,
   const int j = tid & (cols - 1), lt = tid >> log_cols;
   const int j2 = tid / TC, l2 = tid % TC;
 
-  // T[row, a, c0 + j] for a = lt + r*R/16 first, under the twiddle build.
-  const float* trr = tr + row * n + c0 + j;
-  const float* tir = ti + row * n + c0 + j;
   float2 v[16];
+  if constexpr (StageB<LOG_R, TT>::kPair) {
+    load_pair<LOG_R>(v, reinterpret_cast<TT*>(smem + pair_half_slot(P::kTw, cols, ld)), tr,
+                     ti, row * n + c0, R2, j, lt, tid);
+  } else {
+    // T[row, a, c0 + j] for a = lt + r*R/16 first, under the twiddle build.
+    const TT* trr = tr + row * n + c0 + j;
+    const TT* tir = ti + row * n + c0 + j;
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const long long q = (long long)(lt + r * TC) * R2;
-    v[r] = make_float2(trr[q], tir[q]);
+    for (int r = 0; r < 16; ++r) {
+      const long long q = (long long)(lt + r * TC) * R2;
+      v[r] = make_float2(load_t(trr + q), load_t(tir + q));
+    }
   }
   if constexpr (ABLATE != kMemcopy) {
     fill_twiddles(tw, R, P::kTw, tid, blockDim.x);
@@ -248,6 +392,10 @@ cwt_stage_b_kernel(const float* __restrict__ tr, const float* __restrict__ ti,
       __syncthreads();
     }
     if (tid == 0) out0[row * tiles + tile] = red[0];
+  }
+  if constexpr (StageB<LOG_R, TT>::kPair) {
+    // the peer's reads of this block's half are done (load_pair)
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
   }
 }
 
@@ -314,15 +462,16 @@ cudaError_t allow_smem(const void* fn, std::atomic<unsigned long long>& done) {
   return err;
 }
 
-// cols a power of two that divides `other`, with cols * R <= 8192.
-bool tile_ok(int R, int cols, int other) {
+// cols a power of two that divides `other`, with cols * R <= 16 * threads
+// (8192 for the 512 threads of every block but StageB's wide ones).
+bool tile_ok(int R, int cols, int other, int threads = kMaxThreads) {
   return cols >= 1 && (cols & (cols - 1)) == 0 && other % cols == 0 &&
-         (long long)cols * R <= 16LL * kMaxThreads;
+         (long long)cols * R <= 16LL * threads;
 }
 
-template <int LOG_R>
+template <int LOG_R, typename TT>
 cudaError_t launch_a(const float* xr, const float* xi, long long x_stride,
-                     const float* scales, float* tr, float* ti, int B, int S, int R1,
+                     const float* scales, TT* tr, TT* ti, int B, int S, int R1,
                      int rows, int cols, int mother, float f0, int m, float cre,
                      float cim, float dt, float omega0, const int* plan,
                      cudaStream_t stream) {
@@ -331,56 +480,70 @@ cudaError_t launch_a(const float* xr, const float* xi, long long x_stride,
     return cudaErrorInvalidValue;
   }
   static std::atomic<unsigned long long> done{0};
-  cudaError_t err = allow_smem((const void*)cwt_stage_a_kernel<LOG_R>, done);
+  cudaError_t err = allow_smem((const void*)cwt_stage_a_kernel<LOG_R, TT>, done);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)B * S * (R1 / cols);
-  cwt_stage_a_kernel<LOG_R><<<(unsigned)blocks, cols * R / 16, smem_bytes<LOG_R>(cols),
-                              stream>>>(
+  cwt_stage_a_kernel<LOG_R, TT><<<(unsigned)blocks, cols * R / 16, smem_bytes<LOG_R>(cols),
+                                  stream>>>(
       xr, xi, x_stride, scales, tr, ti, S, R1, rows, log2i(cols), column_ld(R, cols),
       mother, f0, m, cre, cim, dt, omega0);
   return cudaGetLastError();
 }
 
-template <int LOG_R, int ABLATE = kFull>
-cudaError_t launch_b(const float* tr, const float* ti, float* out0, float* out1,
+#define PYCWT_COLUMN_CASES(X) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)
+
+// A wide block (StageB) takes exactly kCols columns; a pair of them is
+// launched as a cluster of two blocks.
+template <int LOG_R, int ABLATE = kFull, typename TT = float>
+cudaError_t launch_b(const TT* tr, const TT* ti, float* out0, float* out1,
                      long long rows, int R2, int cols, int mode, float inv_n,
                      const int* plan, cudaStream_t stream) {
+  using SB = StageB<LOG_R, TT>;
   constexpr int R = 1 << LOG_R;
-  if (!plan_matches<LOG_R>(plan) || !tile_ok(R, cols, R2)) return cudaErrorInvalidValue;
+  if (!plan_matches<LOG_R>(plan) || !tile_ok(R, cols, R2, SB::kThreads) ||
+      (SB::kWide && cols != SB::kCols) || (SB::kPair && R2 % (2 * cols) != 0)) {
+    return cudaErrorInvalidValue;
+  }
   static std::atomic<unsigned long long> done{0};
-  cudaError_t err = allow_smem((const void*)cwt_stage_b_kernel<LOG_R, ABLATE>, done);
+  const auto kernel = cwt_stage_b_kernel<LOG_R, ABLATE, TT>;
+  cudaError_t err = allow_smem((const void*)kernel, done);
   if (err != cudaSuccess) return err;
   const long long blocks = rows * (R2 / cols);
-  cwt_stage_b_kernel<LOG_R, ABLATE><<<(unsigned)blocks, cols * R / 16,
-                                      smem_bytes<LOG_R>(cols), stream>>>(
-      tr, ti, out0, out1, R2, log2i(cols), column_ld(R, cols), mode, inv_n);
+  if constexpr (SB::kPair) {
+    cudaLaunchAttribute pair[1];
+    pair[0].id = cudaLaunchAttributeClusterDimension;
+    pair[0].val.clusterDim.x = 2;
+    pair[0].val.clusterDim.y = 1;
+    pair[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)blocks);
+    cfg.blockDim = dim3(cols * R / 16);
+    cfg.dynamicSmemBytes =
+        sizeof(float2) * pair_half_slot(ColumnPlan<LOG_R>::kTw, cols, column_ld(R, cols)) +
+        kPairHalfBytes<LOG_R>;
+    cfg.stream = stream;
+    cfg.attrs = pair;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, tr, ti, out0, out1, R2, log2i(cols),
+                             column_ld(R, cols), mode, inv_n);
+    if (err != cudaSuccess) return err;
+  } else {
+    kernel<<<(unsigned)blocks, cols * R / 16, smem_bytes<LOG_R>(cols), stream>>>(
+        tr, ti, out0, out1, R2, log2i(cols), column_ld(R, cols), mode, inv_n);
+  }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-#define PYCWT_COLUMN_CASES(X) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)
-// cwt_stage_b_ablation's column lengths: 16 to 2048 (nfft 2^8 to 2^23)
-#define PYCWT_ABLATION_CASES(X) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11)
-
-extern "C" {
-
-// X: planar rows x_stride apart, B signals; scales: S; T out: (B*S, R1, R2).
-// The radix plan (p0, .., p3) of the length-R2 columns must be
-// _column_radix_plan(R2), padded with 1s; any other is refused.
-cudaError_t cwt_stage_a(const float* xr, const float* xi, long long x_stride,
-                        const float* scales, float* tr, float* ti,
-                        int B, int S, int R1, int R2, int rows, int cols,
-                        int mother, float f0, int m, float cre, float cim,
-                        float dt, float omega0, int p0, int p1, int p2, int p3,
-                        void* stream) {
-  const int plan[4] = {p0, p1, p2, p3};
+template <typename TT>
+cudaError_t stage_a(const float* xr, const float* xi, long long x_stride,
+                    const float* scales, TT* tr, TT* ti, int B, int S, int R1, int R2,
+                    int rows, int cols, int mother, float f0, int m, float cre, float cim,
+                    float dt, float omega0, const int* plan, cudaStream_t stream) {
   if (B < 1 || S < 1) return cudaErrorInvalidValue;
-#define PYCWT_STAGE_A_CASE(LOG_R)                                                     \
-  case 1 << LOG_R:                                                                    \
-    return launch_a<LOG_R>(xr, xi, x_stride, scales, tr, ti, B, S, R1, rows, cols,    \
-                           mother, f0, m, cre, cim, dt, omega0, plan,                 \
-                           (cudaStream_t)stream);
+#define PYCWT_STAGE_A_CASE(LOG_R)                                                      \
+  case 1 << LOG_R:                                                                     \
+    return launch_a<LOG_R, TT>(xr, xi, x_stride, scales, tr, ti, B, S, R1, rows, cols, \
+                               mother, f0, m, cre, cim, dt, omega0, plan, stream);
   switch (R2) {
     PYCWT_COLUMN_CASES(PYCWT_STAGE_A_CASE)
     default:
@@ -389,20 +552,16 @@ cudaError_t cwt_stage_a(const float* xr, const float* xi, long long x_stride,
 #undef PYCWT_STAGE_A_CASE
 }
 
-// T: (rows, R1, R2).  mode 0: out0/out1 = W planes (rows, N); mode 1:
-// out0 = |W|^2 (rows, N); mode 2: out0 = partials (rows, R2/cols) scratch,
-// out1 = sum_t |W|^2 (rows,).  The plan of the length-R1 columns must be
-// _column_radix_plan(R1), padded with 1s.
-cudaError_t cwt_stage_b(const float* tr, const float* ti, float* out0, float* out1,
-                        long long rows, int R1, int R2, int cols, int mode,
-                        float inv_n, int p0, int p1, int p2, int p3, void* stream) {
-  const int plan[4] = {p0, p1, p2, p3};
+template <typename TT>
+cudaError_t stage_b(const TT* tr, const TT* ti, float* out0, float* out1, long long rows,
+                    int R1, int R2, int cols, int mode, float inv_n, const int* plan,
+                    cudaStream_t st) {
   if (rows < 1 || mode < kPlanes || mode > kPowerSum) return cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
-#define PYCWT_STAGE_B_CASE(LOG_R)                                                  \
-  case 1 << LOG_R:                                                                 \
-    err = launch_b<LOG_R>(tr, ti, out0, out1, rows, R2, cols, mode, inv_n, plan, st); \
+#define PYCWT_STAGE_B_CASE(LOG_R)                                                    \
+  case 1 << LOG_R:                                                                   \
+    err = launch_b<LOG_R, kFull, TT>(tr, ti, out0, out1, rows, R2, cols, mode, inv_n, \
+                                     plan, st);                                      \
     break;
   switch (R1) {
     PYCWT_COLUMN_CASES(PYCWT_STAGE_B_CASE)
@@ -415,6 +574,63 @@ cudaError_t cwt_stage_b(const float* tr, const float* ti, float* out0, float* ou
   cwt_stage_b_reduce_kernel<<<rblocks, kReduceThreads, 0, st>>>(out0, out1, rows,
                                                                 R2 / cols);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// cwt_stage_b_ablation's column lengths: 16 to 2048 (nfft 2^8 to 2^23)
+#define PYCWT_ABLATION_CASES(X) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11)
+
+extern "C" {
+
+// X: planar rows x_stride apart, B signals; scales: S; T out: (B*S, R1, R2)
+// f32.  The radix plan (p0, .., p3) of the length-R2 columns must be
+// _column_radix_plan(R2), padded with 1s; any other is refused.
+cudaError_t cwt_stage_a(const float* xr, const float* xi, long long x_stride,
+                        const float* scales, float* tr, float* ti,
+                        int B, int S, int R1, int R2, int rows, int cols,
+                        int mother, float f0, int m, float cre, float cim,
+                        float dt, float omega0, int p0, int p1, int p2, int p3,
+                        void* stream) {
+  const int plan[4] = {p0, p1, p2, p3};
+  return stage_a<float>(xr, xi, x_stride, scales, tr, ti, B, S, R1, R2, rows, cols,
+                        mother, f0, m, cre, cim, dt, omega0, plan, (cudaStream_t)stream);
+}
+
+// cwt_stage_a with T bf16, rounded to nearest even (precision="fast").
+cudaError_t cwt_stage_a_bf16(const float* xr, const float* xi, long long x_stride,
+                             const float* scales, void* tr, void* ti,
+                             int B, int S, int R1, int R2, int rows, int cols,
+                             int mother, float f0, int m, float cre, float cim,
+                             float dt, float omega0, int p0, int p1, int p2, int p3,
+                             void* stream) {
+  const int plan[4] = {p0, p1, p2, p3};
+  return stage_a<bf16>(xr, xi, x_stride, scales, static_cast<bf16*>(tr),
+                       static_cast<bf16*>(ti), B, S, R1, R2, rows, cols, mother, f0, m,
+                       cre, cim, dt, omega0, plan, (cudaStream_t)stream);
+}
+
+// T: (rows, R1, R2) f32.  mode 0: out0/out1 = W planes (rows, N); mode 1:
+// out0 = |W|^2 (rows, N); mode 2: out0 = partials (rows, R2/cols) scratch,
+// out1 = sum_t |W|^2 (rows,).  The plan of the length-R1 columns must be
+// _column_radix_plan(R1), padded with 1s.
+cudaError_t cwt_stage_b(const float* tr, const float* ti, float* out0, float* out1,
+                        long long rows, int R1, int R2, int cols, int mode,
+                        float inv_n, int p0, int p1, int p2, int p3, void* stream) {
+  const int plan[4] = {p0, p1, p2, p3};
+  return stage_b<float>(tr, ti, out0, out1, rows, R1, R2, cols, mode, inv_n, plan,
+                        (cudaStream_t)stream);
+}
+
+// cwt_stage_b on a bf16 T (precision="fast"), widened exactly to f32; at
+// R1 = 1024 and 2048 cols must be 16 and 8 (StageB's wide blocks), else
+// _tile_cols(R1, R2) as for cwt_stage_b.
+cudaError_t cwt_stage_b_bf16(const void* tr, const void* ti, float* out0, float* out1,
+                             long long rows, int R1, int R2, int cols, int mode,
+                             float inv_n, int p0, int p1, int p2, int p3, void* stream) {
+  const int plan[4] = {p0, p1, p2, p3};
+  return stage_b<bf16>(static_cast<const bf16*>(tr), static_cast<const bf16*>(ti), out0,
+                       out1, rows, R1, R2, cols, mode, inv_n, plan, (cudaStream_t)stream);
 }
 
 // cwt_stage_b's planes mode with the stages of `variant` taken out (enum

@@ -38,6 +38,11 @@ _SIGNATURES = {
                          _I, _F, _I, _F, _F, _F, _F, _I, _I, _I, _I, _V], _I),
         "cwt_stage_b": ([_V, _V, _V, _V, _LL, _I, _I, _I, _I, _F,
                          _I, _I, _I, _I, _V], _I),
+        # the same entries with a bf16 T (precision="fast")
+        "cwt_stage_a_bf16": ([_V, _V, _LL, _V, _V, _V, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _I, _F, _F, _F, _F, _I, _I, _I, _I, _V], _I),
+        "cwt_stage_b_bf16": ([_V, _V, _V, _V, _LL, _I, _I, _I, _I, _F,
+                              _I, _I, _I, _I, _V], _I),
         "cwt_stage_b_ablation": ([_V, _V, _V, _V, _LL, _I, _I, _I, _F,
                                   _I, _I, _I, _I, _I, _V], _I),
     },

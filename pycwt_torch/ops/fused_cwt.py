@@ -14,13 +14,22 @@ Stockham FFT of 16 points per thread with the radices of
 :func:`_column_radix_plan`, which the wrapper passes and the kernel checks;
 :func:`_column_stockham` replays those passes for the tests.
 
+Precision tiers.  ``highest`` and ``high`` run the kernels with an f32
+intermediate T.  ``fast`` stores T in bf16, as ``pycwt_tpu`` does at its
+fast tier (``pallas_fft.py:699-705``): stage A rounds T to nearest even and
+stage B widens it back to f32, which halves T's round trip through device
+memory.  The bf16 forms are the entries ``cwt_stage_a_bf16`` and
+``cwt_stage_b_bf16``, counted apart in :data:`KERNEL_LAUNCHES`.
+
 Dispatch: a CPU tensor runs the plain PyTorch version
-(:func:`_fused_cwt_planar_reference`, the bank × X then ``torch.fft.ifft``);
-a CUDA tensor runs the kernels, or the call raises; any other device raises.
-The kernels' gradient replays the plain version (:class:`_FusedCWT`), as the
-JAX package's ``_with_xla_vjp`` does.  Each kernel wrapper also has its own
-plain version (:func:`_stage_a_reference`, :func:`_stage_b_reference`) with
-the kernel's exact layout, so the four-step split is checked on the CPU.
+(:func:`_fused_cwt_planar_reference`, the bank × X then ``torch.fft.ifft``;
+at ``fast`` the two stages' plain versions with a bf16 T); a CUDA tensor
+runs the kernels, or the call raises; any other device raises.  The
+kernels' gradient replays the f32 plain version at every tier
+(:class:`_FusedCWT`), as the JAX package's ``_with_xla_vjp`` does.  Each
+kernel wrapper also has its own plain version (:func:`_stage_a_reference`,
+:func:`_stage_b_reference`) with the kernel's exact layout, so the
+four-step split is checked on the CPU.
 ``cwt_stage_b``'s ablation variants (``tools/relayout_experiment.py``) have
 theirs in :func:`_stage_b_ablation_reference`.
 
@@ -55,8 +64,13 @@ from .filterbank import angular_frequencies
 __all__ = ["fused_cwt", "fused_cwt_planar", "supported_nfft",
            "KERNEL_LAUNCHES", "stage_a", "stage_b", "cwt_direct"]
 
-#: Launches of each CUDA kernel, counted by its wrapper where it launches.
-KERNEL_LAUNCHES = {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0}
+#: Launches of each CUDA kernel, counted by its wrapper where it launches;
+#: the ``_bf16`` entries are the stages with a bf16 T (``precision="fast"``).
+KERNEL_LAUNCHES = {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0,
+                   "cwt_stage_a_bf16": 0, "cwt_stage_b_bf16": 0}
+
+#: T's element types: f32, and bf16 at the ``fast`` tier
+_T_DTYPES = (torch.float32, torch.bfloat16)
 
 #: Largest nfft that ``small_kernel`` routes to ``cwt_direct``
 #: (``pycwt_tpu/ops/pallas_fft.py:73``).
@@ -73,6 +87,10 @@ _MODES = {"planes": 0, "power": 1, "power_sum": 2}
 #: shared memory a Hopper block may take (227 KB).
 _BLOCK_POINTS = 8192
 _SMEM_MAX = 232448
+#: R1 where a bf16 T takes cwt_stage_b's wide blocks: 1024 threads over
+#: 16384 points, 16 and 8 columns (StageB in csrc/fused_cwt.cu)
+_WIDE_R1 = (1024, 2048)
+_WIDE_POINTS = 16384
 
 
 def supported_nfft(nfft: int) -> bool:
@@ -125,6 +143,32 @@ def _tile_cols(R: int, n_cols: int) -> int:
         raise ValueError(f"a {R}-point column does not fit one block "
                          f"({_BLOCK_POINTS} points at most)")
     return min(n_cols, _BLOCK_POINTS // R)
+
+
+def _t_dtype(precision: str) -> torch.dtype:
+    """T's element type at a precision tier: bf16 at ``fast``, else f32."""
+    return torch.bfloat16 if precision == "fast" else torch.float32
+
+
+def _stage_b_cols(R1: int, R2: int, t_dtype) -> int:
+    """Columns of T one ``cwt_stage_b`` block runs: :func:`_tile_cols`, or
+    for a bf16 T at R1 = 1024 and 2048 twice that, in a block of 1024
+    threads (16 columns, rows of T 32 bytes; 8 at R1 = 2048, where a pair
+    of blocks stages its 16 columns)."""
+    if t_dtype == torch.bfloat16 and R1 in _WIDE_R1:
+        return min(R2, _WIDE_POINTS // R1)
+    return _tile_cols(R1, R2)
+
+
+def _stage_b_smem_bytes(R1: int, cols: int, t_dtype) -> int:
+    """Dynamic shared memory of one ``cwt_stage_b`` block: :func:`_smem_bytes`,
+    and for the pair of a bf16 T at R1 = 2048 its staged half-tile after the
+    buffer, 16-byte aligned: R1/2 rows of 16 bf16 columns, two planes
+    (pair_half_slot and kPairHalfBytes in csrc/fused_cwt.cu)."""
+    if not (t_dtype == torch.bfloat16 and R1 == 2048):
+        return _smem_bytes(R1, cols)
+    slot = _smem_bytes(R1, cols) // 8
+    return 8 * (slot + slot % 2) + 2 * (R1 // 2) * 16 * 2
 
 
 def _is_analytic(mother: Mother) -> bool:
@@ -366,12 +410,14 @@ def _epilogue(wr, wi, output: str):
 
 
 def _stage_a_reference(sr, si, scales, *, mother: Mother, nfft: int,
-                       dt: float, column_fft=_column_ifft):
+                       dt: float, column_fft=_column_ifft, t_dtype=None):
     """Stage A in PyTorch with the kernel's layout: ``sr``/``si`` are
     ``(B, n_in)``; returns planar T of shape ``(B·S, R1, R2)``.  Analytic
     mothers read only rows b < R2/2 (k < N/2), as the kernel does.
     ``column_fft(y, dim)`` is the length-R2 inverse DFT (the tests pass the
-    kernel's mirror :func:`_column_stockham`)."""
+    kernel's mirror :func:`_column_stockham`).  T comes in the dtype of the
+    inputs, rounded once (to nearest even) to ``t_dtype`` where that is
+    given, as ``cwt_stage_a_bf16`` rounds its f32 T."""
     R1, R2 = _nfft_factors(nfft)
     B, n_in = sr.shape
     rows = R2 // 2 if _is_analytic(mother) else R2
@@ -393,13 +439,18 @@ def _stage_a_reference(sr, si, scales, *, mother: Mother, nfft: int,
           * torch.arange(R1, dtype=torch.float64, device=dev)[None, :])
     tw = torch.polar(torch.ones_like(ac), (2 * math.pi / nfft) * ac)
     T = (Z * tw.to(Z.dtype)).transpose(-1, -2).reshape(-1, R1, R2)
-    return T.real.contiguous(), T.imag.contiguous()
+    if t_dtype is None:
+        return T.real.contiguous(), T.imag.contiguous()
+    return T.real.to(t_dtype).contiguous(), T.imag.to(t_dtype).contiguous()
 
 
 def _stage_b_reference(tr, ti, *, nfft: int, output: str, column_fft=_column_ifft):
     """Stage B in PyTorch: T ``(rows, R1, R2)`` → W planes ``(rows, N)`` ×2,
     |W|² ``(rows, N)``, or Σ_t |W|² ``(rows,)``; ``column_fft`` as in
-    :func:`_stage_a_reference`, of length R1."""
+    :func:`_stage_a_reference`, of length R1.  A bf16 T is widened to f32
+    first (exactly), as ``cwt_stage_b_bf16`` does."""
+    if tr.dtype == torch.bfloat16:
+        tr, ti = tr.to(torch.float32), ti.to(torch.float32)
     M = column_fft(torch.complex(tr, ti), -2) / nfft
     W = M.reshape(tr.shape[0], nfft)
     return _epilogue(W.real, W.imag, output)
@@ -426,12 +477,19 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
-def stage_a(sr, si, scales, *, mother: Mother, nfft: int, dt: float):
+def stage_a(sr, si, scales, *, mother: Mother, nfft: int, dt: float,
+            t_dtype=torch.float32):
     """Kernel A: ``(B, n_in)`` planar spectra and ``(S,)`` scales → planar T
-    ``(B·S, R1, R2)`` f32.  CPU tensors run :func:`_stage_a_reference`."""
+    ``(B·S, R1, R2)`` of ``t_dtype``: f32 (``cwt_stage_a``) or bf16 rounded
+    to nearest even (``cwt_stage_a_bf16``); any other type raises
+    ``ValueError``.  CPU tensors run :func:`_stage_a_reference` (an f32 T
+    there keeps the inputs' dtype)."""
+    if t_dtype not in _T_DTYPES:
+        raise ValueError(f"T must be float32 or bfloat16, got {t_dtype}")
+    bf16 = t_dtype == torch.bfloat16
     if _check_device(sr) == "cpu":
         return _stage_a_reference(sr, si, scales, mother=mother, nfft=nfft,
-                                  dt=dt)
+                                  dt=dt, t_dtype=t_dtype if bf16 else None)
     from ._build import library
 
     R1, R2 = _nfft_factors(nfft)
@@ -448,38 +506,46 @@ def stage_a(sr, si, scales, *, mother: Mother, nfft: int, dt: float):
     rows = R2 // 2 if _is_analytic(mother) else R2
     kind, f0, m = _mother_args(mother)
     cbar = complex(mother.psi_ft_const()).conjugate()
-    tr = torch.empty((B * S, R1, R2), dtype=torch.float32, device=sr.device)
+    tr = torch.empty((B * S, R1, R2), dtype=t_dtype, device=sr.device)
     ti = torch.empty_like(tr)
+    name = "cwt_stage_a_bf16" if bf16 else "cwt_stage_a"
     with torch.cuda.device(sr.device):
-        err = library("fused_cwt").cwt_stage_a(
+        err = getattr(library("fused_cwt"), name)(
             sr.data_ptr(), si.data_ptr(), n_in, scales.data_ptr(),
             tr.data_ptr(), ti.data_ptr(),
             B, S, R1, R2, rows, cols, kind, f0, m, cbar.real, cbar.imag,
             float(dt), 2.0 * math.pi / (nfft * dt), *_plan_args(R2),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "cwt_stage_a")
-    KERNEL_LAUNCHES["cwt_stage_a"] += 1
+    _raise_on(err, name)
+    KERNEL_LAUNCHES[name] += 1
     return tr, ti
 
 
 def stage_b(tr, ti, *, nfft: int, output: str):
-    """Kernel B: planar T ``(rows, R1, R2)`` → W planes, |W|² or Σ_t |W|²
-    (see :func:`_stage_b_reference`).  CPU tensors run the plain version."""
-    if _check_device(tr) == "cpu":
+    """Kernel B: planar T ``(rows, R1, R2)``, f32 (``cwt_stage_b``) or bf16
+    (``cwt_stage_b_bf16``, widened exactly to f32), → W planes, |W|² or
+    Σ_t |W|² (see :func:`_stage_b_reference`); a T of any other type raises
+    ``ValueError``.  CPU tensors run the plain version, which also takes the
+    f64 T that :func:`stage_a` gives for f64 inputs there."""
+    cpu = _check_device(tr) == "cpu"
+    if tr.dtype != ti.dtype or not (
+            tr.dtype in _T_DTYPES or (cpu and tr.dtype == torch.float64)):
+        raise ValueError(f"T must be two float32 or bfloat16 planes, got "
+                         f"{tr.dtype} and {ti.dtype}")
+    if cpu:
         return _stage_b_reference(tr, ti, nfft=nfft, output=output)
     from ._build import library
 
     R1, R2 = _nfft_factors(nfft)
     rows = tr.shape[0]
     if (tuple(tr.shape) != (rows, R1, R2) or ti.shape != tr.shape
-            or tr.dtype != torch.float32 or ti.dtype != torch.float32
             or ti.device != tr.device):
-        raise ValueError(f"T must be two f32 ({rows}, {R1}, {R2}) planes on one "
-                         f"device, got {tr.dtype} {tuple(tr.shape)} and "
-                         f"{ti.dtype} {tuple(ti.shape)}")
+        raise ValueError(f"T must be two ({rows}, {R1}, {R2}) planes on one "
+                         f"device, got {tuple(tr.shape)} and {tuple(ti.shape)}")
+    bf16 = tr.dtype == torch.bfloat16
     tr = tr.contiguous()
     ti = ti.contiguous()
-    cols = _tile_cols(R1, R2)
+    cols = _stage_b_cols(R1, R2, tr.dtype)
     _check_grid(rows * (R2 // cols))
     kw = dict(dtype=torch.float32, device=tr.device)
     if output == "planes":
@@ -488,14 +554,15 @@ def stage_b(tr, ti, *, nfft: int, output: str):
         out0, out1 = torch.empty((rows, nfft), **kw), None
     else:
         out0, out1 = torch.empty((rows, R2 // cols), **kw), torch.empty((rows,), **kw)
+    name = "cwt_stage_b_bf16" if bf16 else "cwt_stage_b"
     with torch.cuda.device(tr.device):
-        err = library("fused_cwt").cwt_stage_b(
+        err = getattr(library("fused_cwt"), name)(
             tr.data_ptr(), ti.data_ptr(), out0.data_ptr(),
             None if out1 is None else out1.data_ptr(),
             rows, R1, R2, cols, _MODES[output], 1.0 / nfft, *_plan_args(R1),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "cwt_stage_b")
-    KERNEL_LAUNCHES["cwt_stage_b"] += 1
+    _raise_on(err, name)
+    KERNEL_LAUNCHES[name] += 1
     if output == "planes":
         return out0, out1
     return out0 if output == "power" else out1
@@ -544,14 +611,18 @@ def cwt_direct(sr, si, scales, *, mother: Mother, nfft: int, dt: float,
 
 
 class _FusedCWT(torch.autograd.Function):
-    """Forward: the two CUDA kernels.  Backward: the gradient of the plain
-    version on the saved inputs (there is no backward kernel)."""
+    """Forward: the two CUDA kernels, with a bf16 T at ``precision="fast"``
+    and an f32 one at the other tiers (on CPU tensors their plain versions).
+    Backward: the gradient of the f32 plain version on the saved inputs at
+    every tier (there is no backward kernel), as ``_with_xla_vjp`` replays
+    the f32 reference."""
 
     @staticmethod
-    def forward(ctx, sr, si, scales, mother, nfft, dt, output):
+    def forward(ctx, sr, si, scales, mother, nfft, dt, output, precision="highest"):
         ctx.save_for_backward(sr, si, scales)
         ctx.params = (mother, nfft, dt, output)
-        T = stage_a(sr, si, scales, mother=mother, nfft=nfft, dt=dt)
+        T = stage_a(sr, si, scales, mother=mother, nfft=nfft, dt=dt,
+                    t_dtype=_t_dtype(precision))
         out = stage_b(*T, nfft=nfft, output=output)
         # the plain version's shapes: (B, S, nfft) or (B, S)
         shape = (sr.shape[0], scales.shape[0]) + ((nfft,) if output != "power_sum" else ())
@@ -575,17 +646,18 @@ class _FusedCWT(torch.autograd.Function):
                                       allow_unused=True) if wanted else ()
         got = iter(got)
         result = [next(got) if t.requires_grad else None for t in inputs]
-        return (*result, None, None, None, None)
+        return (*result, None, None, None, None, None)
 
 
 class _FusedDirect(_FusedCWT):
     """Forward: kernel K3 (``cwt_direct``) with the epilogue inside the
     kernel (the JAX package runs it after its kernel; the results agree
-    within the tier bounds).  Backward: inherited, the gradient of the plain
-    version."""
+    within the tier bounds).  It holds no intermediate in memory, so every
+    ``precision`` runs the same kernel, as ``pycwt_tpu``'s small kernel.
+    Backward: inherited, the gradient of the plain version."""
 
     @staticmethod
-    def forward(ctx, sr, si, scales, mother, nfft, dt, output):
+    def forward(ctx, sr, si, scales, mother, nfft, dt, output, precision="highest"):
         ctx.save_for_backward(sr, si, scales)
         ctx.params = (mother, nfft, dt, output)
         return cwt_direct(sr, si, scales, mother=mother, nfft=nfft, dt=dt,
@@ -604,16 +676,26 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
     (``fft_of_real_planar(half=True)``).  ``output`` selects the epilogue:
     ``"planes"`` (default) returns ``(wr, wi)`` each ``(..., S, nfft)``;
     ``"power"`` returns |W|² ``(..., S, nfft)``; ``"power_sum"`` returns
-    Σ_t |W|² ``(..., S)`` (the legacy ``power_only=True``).  All three
-    ``precision`` tiers currently run the same f32 kernels.  ``Ablk``,
+    Σ_t |W|² ``(..., S)`` (the legacy ``power_only=True``).  ``Ablk``,
     ``Cblk`` (the Pallas kernels' block sizes) and ``interpret`` (Pallas's
     interpret mode) are accepted for calls written against ``pycwt_tpu`` and
     ignored: the CUDA kernels size their own blocks, and a CPU tensor runs
     the plain version.
 
+    ``precision`` selects T, the intermediate between the two kernels, at
+    every nfft they serve: ``"highest"`` and ``"high"`` run
+    ``cwt_stage_a``/``cwt_stage_b`` on an f32 T (on a CPU tensor
+    :func:`_fused_cwt_planar_reference`); ``"fast"`` runs
+    ``cwt_stage_a_bf16``/``cwt_stage_b_bf16``, whose T is bf16, rounded to
+    nearest even and widened back to f32 (on a CPU tensor the two stages'
+    plain versions with a bf16 T), as ``pycwt_tpu``'s fast tier stores T
+    (within its 2e-2 of max|W|).  The gradient is the f32 plain version's
+    at every tier.
+
     ``small_kernel=True`` (or, when it is None, ``PYCWT_TPU_SMALL_KERNEL=1``)
     runs the one-launch kernel ``cwt_direct`` for nfft ≤ 2^12 and is ignored
     above, as in the JAX package; on a CPU tensor its plain version runs.
+    ``cwt_direct`` holds no T, so every tier runs it alike.
     """
     if small_kernel is None:
         small_kernel = os.environ.get("PYCWT_TPU_SMALL_KERNEL") == "1"
@@ -643,14 +725,16 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
     scales = torch.as_tensor(scales, device=sig_r.device)
     small = bool(small_kernel) and nfft <= _SMALL_KERNEL_MAX
 
-    if _check_device(sig_r) == "cpu":
+    # a CPU tensor runs the plain version; at `fast` that is the two stages'
+    # plain versions with a bf16 T, through _FusedCWT as on the card
+    if _check_device(sig_r) == "cpu" and (small or precision != "fast"):
         plain = _direct_reference if small else _fused_cwt_planar_reference
         return plain(sig_r, sig_i, scales, mother=mother, nfft=nfft,
                      dt=float(dt), output=output)
     lead = sig_r.shape[:-1]
     route = _FusedDirect if small else _FusedCWT
     out = route.apply(sig_r.reshape(-1, n_in), sig_i.reshape(-1, n_in),
-                      scales, mother, nfft, float(dt), output)
+                      scales, mother, nfft, float(dt), output, precision)
     if output == "planes":
         return tuple(o.reshape(*lead, *o.shape[1:]) for o in out)
     return out.reshape(*lead, *out.shape[1:])

@@ -126,7 +126,7 @@ def test_small_kernel_ignored_above_2_12(monkeypatch):
     PYCWT_TPU_SMALL_KERNEL=1) is ignored and the K1+K2 route runs, as in
     pycwt_tpu/ops/pallas_fft.py:609; at 2^12 it selects K3's plain version.
     On the CPU no kernel launches."""
-    fc.KERNEL_LAUNCHES.update(cwt_stage_a=0, cwt_stage_b=0, cwt_direct=0)
+    fc.KERNEL_LAUNCHES.update(dict.fromkeys(fc.KERNEL_LAUNCHES, 0))
     sc = torch.tensor(SCALES[:3], dtype=torch.float32)
     kw = dict(mother=pt.Morlet(6), dt=1.0)
     nfft = 1 << 13
@@ -150,7 +150,8 @@ def test_small_kernel_ignored_above_2_12(monkeypatch):
     off = fc.fused_cwt_planar(sr, si, sc, nfft=nfft, small_kernel=False, **kw)
     assert all(torch.equal(g, d) for g, d in zip(off, plain))
     assert not torch.equal(direct[0], plain[0])
-    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0}
+    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0,
+                                  "cwt_stage_a_bf16": 0, "cwt_stage_b_bf16": 0}
 
 
 @pytest.mark.parametrize("output", ["planes", "power", "power_sum"])

@@ -117,15 +117,17 @@ def test_power_sum_matches_summed_power(cuda):
 def test_counters_and_dispatch(cuda, monkeypatch):
     """small_kernel launches cwt_direct at nfft ≤ 2^12 only; above, the two
     kernels run, as in the JAX package; the environment opt-in likewise."""
-    fc.KERNEL_LAUNCHES.update(cwt_stage_a=0, cwt_stage_b=0, cwt_direct=0)
+    fc.KERNEL_LAUNCHES.update(dict.fromkeys(fc.KERNEL_LAUNCHES, 0))
     sr, si, sc = _inputs(512, False, 1, 3, cuda)
     kw = dict(mother=pt.Morlet(6), dt=1.0)
     fc.fused_cwt_planar(sr, si, sc, nfft=512, small_kernel=True, **kw)
-    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 1}
+    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 1,
+                                  "cwt_stage_a_bf16": 0, "cwt_stage_b_bf16": 0}
     sr, si, sc = _inputs(1 << 13, False, 1, 3, cuda)
     on = fc.fused_cwt_planar(sr, si, sc, nfft=1 << 13, small_kernel=True, **kw)
     off = fc.fused_cwt_planar(sr, si, sc, nfft=1 << 13, small_kernel=False, **kw)
-    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 2, "cwt_stage_b": 2, "cwt_direct": 1}
+    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 2, "cwt_stage_b": 2, "cwt_direct": 1,
+                                  "cwt_stage_a_bf16": 0, "cwt_stage_b_bf16": 0}
     assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
     monkeypatch.setenv("PYCWT_TPU_SMALL_KERNEL", "1")
     x = np.random.default_rng(2).standard_normal(504)
@@ -158,8 +160,9 @@ def test_wct_via_cwt_direct_matches_golden(cuda, monkeypatch):
     the f32 bound 1e-3 (tests/test_engines.py:170)."""
     g = np.load(os.path.join(GOLDEN, "wct_jao_jbaltic.npz"))
     monkeypatch.setenv("PYCWT_TPU_SMALL_KERNEL", "1")
-    fc.KERNEL_LAUNCHES.update(cwt_stage_a=0, cwt_stage_b=0, cwt_direct=0)
+    fc.KERNEL_LAUNCHES.update(dict.fromkeys(fc.KERNEL_LAUNCHES, 0))
     WCT, aWCT, coi, freq, sig = pt.wct(g["y1"], g["y2"], float(g["dt"]), sig=False)
-    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 2}
+    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 2,
+                                  "cwt_stage_a_bf16": 0, "cwt_stage_b_bf16": 0}
     assert WCT.shape == g["WCT"].shape and np.isfinite(WCT).all()
     assert _rel_err(WCT, g["WCT"]) < 1e-3

@@ -90,7 +90,8 @@ def test_kernel_layout_plain_versions_equal_plain_transform(spec, pow2):
             ref = torch.complex(*ref)
         got = got.reshape(ref.shape)
         assert float((got - ref).abs().max()) <= bound * float(ref.abs().max())
-    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0}
+    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0,
+                                  "cwt_stage_a_bf16": 0, "cwt_stage_b_bf16": 0}
 
 
 def test_supported_nfft_matches_jax():

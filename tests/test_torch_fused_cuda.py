@@ -74,11 +74,12 @@ def test_batch_equals_single_signals_bitwise(cuda, output):
 
 
 def test_counters_small_kernel_and_public_path(cuda):
-    fc.KERNEL_LAUNCHES.update(cwt_stage_a=0, cwt_stage_b=0, cwt_direct=0)
+    fc.KERNEL_LAUNCHES.update(dict.fromkeys(fc.KERNEL_LAUNCHES, 0))
     x = np.random.default_rng(2).standard_normal(504)
     p, sj, _, _ = pt.cwt_power(x, 0.25)
     W, *_ = pt.cwt(x, 0.25)
-    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 2, "cwt_stage_b": 2, "cwt_direct": 0}
+    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 2, "cwt_stage_b": 2, "cwt_direct": 0,
+                                  "cwt_stage_a_bf16": 0, "cwt_stage_b_bf16": 0}
     ref, *_ = pt.cwt(x, 0.25, config=CWTConfig(engine="xla", dtype=torch.float64))
     np.testing.assert_allclose(p, np.abs(ref) ** 2, rtol=0,
                                atol=1e-5 * (np.abs(ref) ** 2).max())
@@ -87,7 +88,8 @@ def test_counters_small_kernel_and_public_path(cuda):
     sr, si, sc = _inputs(512, False, 1, 2, cuda)
     fc.fused_cwt_planar(sr, si, sc, mother=pt.Morlet(6), nfft=512, dt=1.0,
                         small_kernel=True)
-    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 2, "cwt_stage_b": 2, "cwt_direct": 1}
+    assert fc.KERNEL_LAUNCHES == {"cwt_stage_a": 2, "cwt_stage_b": 2, "cwt_direct": 1,
+                                  "cwt_stage_a_bf16": 0, "cwt_stage_b_bf16": 0}
 
 
 def test_gradients_through_kernels(cuda):
