@@ -1,0 +1,21 @@
+"""Host ms a ``wct`` call spends in its own code: the self time of the span
+``wct`` (``coherence.wct``), its total less the spans inside it, so the
+normalization, the scale grid, the NaN-row drop, the COI, ``ar1`` and the
+Python between the layers.
+
+Read from the program's span recorder (``pycwt_torch.utils.profiling``),
+which loading this module switches on: the harness loads the per-layer
+metrics in the traced run only, after the warm-up and before the window,
+so the untraced runs never time a span.  Calls inside the profiled slice
+are left out (the recorder keeps them apart, since the profiler slows the
+host), and a program without the recorder reads nothing."""
+from pycwt_torch.utils import profiling
+
+getattr(profiling, "enable_spans", lambda: None)()
+
+
+def read(trace):
+    summary = getattr(profiling, "span_summary", dict)()
+    calls = summary.get("wct", {}).get("count", 0)
+    ns = summary.get("wct", {}).get("self_ns", 0)
+    return ns * 1e-6 / calls if calls and ns else None

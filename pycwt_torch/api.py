@@ -18,6 +18,7 @@ from .mothers import as_mother
 from .stats import significance  # noqa: F401  (re-exported, implemented in stats)
 from .transform import (build_scale_grid, coi_bartlett, cwt_batch,
                         drop_reference_nan_rows)
+from .utils.profiling import span
 
 __all__ = ["cwt", "cwt_power", "icwt", "significance"]
 
@@ -32,6 +33,7 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+@span("fetch")
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 

@@ -45,6 +45,7 @@ from .stats import (PRNGKey, _burn_in, ar1, ar1_batch, ar1_spectrum,
 from .transform import (build_scale_grid, coi_bartlett, cwt_batch,
                         drop_reference_nan_rows)
 from .utils.helpers import find, get_cache_dir
+from .utils.profiling import span
 
 __all__ = ["xwt", "xwt_pairs", "xwt_pairs_planar", "xwt_planar", "wct",
            "wct_pairs", "wct_matrix", "wct_significance",
@@ -194,26 +195,29 @@ def _wct_core(y1n, y2n, scales, dt, *, mother: Mother, nfft: int, dj: float,
     default) the pipeline is :func:`_wct_core_planar` and ``W12`` is the
     planar pair ``(W12r, W12i)``.
     """
-    y1n = torch.as_tensor(y1n)
-    if resolve_engine(engine, y1n.device, y1n.dtype) == "planar":
-        warn_planar_downcast(y1n.dtype)
-        return _wct_core_planar(y1n, y2n, scales, dt, mother=mother,
-                                nfft=nfft, dj=dj)
-    cfg = CWTConfig(dtype=y1n.dtype)
-    scales = torch.as_tensor(scales, dtype=y1n.dtype, device=y1n.device)
-    kw = dict(mother=mother, nfft=nfft, config=cfg, engine=engine)
-    W1, _ = cwt_batch(y1n, scales, dt, **kw)
-    W2, _ = cwt_batch(torch.as_tensor(y2n), scales, dt, **kw)
-    s_col = scales[:, None]
-    S1 = smooth(W1.abs() ** 2 / s_col, dt, dj, scales, mother, engine=engine)
-    S2 = smooth(W2.abs() ** 2 / s_col, dt, dj, scales, mother, engine=engine)
-    W12 = W1 * torch.conj(W2)
-    S12 = smooth(W12 / s_col, dt, dj, scales, mother, engine=engine)
-    WCT = S12.abs() ** 2 / (S1 * S2)
-    aWCT = torch.angle(W12)
-    return WCT, aWCT, W12
+    # a block, not a decorator, whose frame would shift the warning's stacklevel
+    with span("wct.core"):
+        y1n = torch.as_tensor(y1n)
+        if resolve_engine(engine, y1n.device, y1n.dtype) == "planar":
+            warn_planar_downcast(y1n.dtype)
+            return _wct_core_planar(y1n, y2n, scales, dt, mother=mother,
+                                    nfft=nfft, dj=dj)
+        cfg = CWTConfig(dtype=y1n.dtype)
+        scales = torch.as_tensor(scales, dtype=y1n.dtype, device=y1n.device)
+        kw = dict(mother=mother, nfft=nfft, config=cfg, engine=engine)
+        W1, _ = cwt_batch(y1n, scales, dt, **kw)
+        W2, _ = cwt_batch(torch.as_tensor(y2n), scales, dt, **kw)
+        s_col = scales[:, None]
+        S1 = smooth(W1.abs() ** 2 / s_col, dt, dj, scales, mother, engine=engine)
+        S2 = smooth(W2.abs() ** 2 / s_col, dt, dj, scales, mother, engine=engine)
+        W12 = W1 * torch.conj(W2)
+        S12 = smooth(W12 / s_col, dt, dj, scales, mother, engine=engine)
+        WCT = S12.abs() ** 2 / (S1 * S2)
+        aWCT = torch.angle(W12)
+        return WCT, aWCT, W12
 
 
+@span("wct")
 def wct(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, sig=True, significance_level=0.95,
         wavelet="morlet", normalize=True, config: CWTConfig = DEFAULT,
         device=None, **kwargs):
@@ -613,6 +617,7 @@ def _wct_matrix_blocks(yn, pi, pj, scales, dt, *, mother: Mother, nfft: int,
 # Monte-Carlo significance
 # --------------------------------------------------------------------------
 
+@span("mc.histogram")
 def _histogram(R2, outsidecoi, valid=None, nbins: int = NBINS):
     """Integer counts of ``clip(floor(R²·nbins), 0, nbins−1)`` over the
     cells outside the COI (wavelet.py:628): ``R2`` is ``(..., B, S, n)``,
@@ -843,6 +848,7 @@ def _surrogate_grid(dt, dj, s0, J, mother: Mother):
     return n, grid.sj, outsidecoi, outsidecoi_any, int(find(outsidecoi_any)[-1])
 
 
+@span("mc")
 def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
                      wavelet="morlet", mc_count=300, progress=True, cache=True,
                      seed=0, mc_batch=None, config: CWTConfig = DEFAULT,
@@ -950,14 +956,16 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
         if tail:
             hist += _mc_histogram_chunk(key, done + nch * mc_batch, scales_t,
                                         oc, dt, batch=tail, **kw)
-        wlc += hist.cpu().numpy()
+        with span("fetch"):
+            wlc += hist.cpu().numpy()
         done = mc_count
         if progress:
             print(f"  MC surrogates: {done}/{mc_count}", end="\r")
     while done < mc_count:
         b = min(mc_batch, mc_count - done)
         hist = _mc_histogram_chunk(key, done, scales_t, oc, dt, batch=b, **kw)
-        wlc += hist.cpu().numpy()
+        with span("fetch"):
+            wlc += hist.cpu().numpy()
         done += b
         if is_coord:
             tmp = f"{checkpoint}.tmp"

@@ -25,6 +25,7 @@ import warnings
 
 import torch
 
+from ..utils.profiling import span
 from . import mxu_dft
 
 __all__ = ["resolve_engine", "warn_planar_downcast", "fft", "ifft",
@@ -109,6 +110,7 @@ def fft_of_real_full(x: torch.Tensor, nfft: int, *, engine: str | None = None):
     return _mirrored(torch.fft.rfft(x, n=nfft, dim=-1), nfft)
 
 
+@span("spectrum")
 def _spectrum_f64(x: torch.Tensor, nfft: int, *,
                   dtype: torch.dtype = torch.complex64,
                   engine: str | None = None) -> torch.Tensor:

@@ -58,6 +58,7 @@ import torch
 
 from ..config import _PRECISIONS
 from ..mothers import DOG, Morlet, Mother, Paul
+from ..utils.profiling import span
 from ._precision import full_f32_matmul
 from .filterbank import angular_frequencies
 
@@ -664,6 +665,7 @@ class _FusedDirect(_FusedCWT):
                           output=output)
 
 
+@span("fused_cwt")
 def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
                      dt: float, Ablk: int = 256, Cblk: int = 256,
                      power_only: bool = False, interpret: bool = False,

@@ -36,6 +36,7 @@ import torch
 
 from ..config import _PRECISIONS, next_pow2
 from ..mothers import Mother
+from ..utils.profiling import span
 from ._precision import full_f32_matmul
 from .fft import fft as engine_fft, ifft as engine_ifft
 
@@ -257,6 +258,7 @@ def smooth_planar_pair(Ta, Tb, dt: float, dj: float, scales, mother: Mother,
     return sm.real, sm.imag
 
 
+@span("smooth")
 def smooth(W, dt: float, dj: float, scales, mother: Mother, *,
            engine: str | None = None):
     """Full WCT smoothing: time Gaussian then scale boxcar.

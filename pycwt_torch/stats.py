@@ -29,6 +29,7 @@ import torch
 
 from .mothers import as_mother
 from .utils.helpers import find
+from .utils.profiling import span
 
 __all__ = ["ar1", "ar1_batch", "ar1_spectrum", "rednoise", "rednoise_batch",
            "rednoise_members", "rednoise_members_pairs", "significance"]
@@ -223,6 +224,7 @@ def _burn_in(g: float) -> int:
     return 0 if g == 0.0 else int(np.ceil(-2 / np.log(np.abs(g))))
 
 
+@span("mc.generate")
 def rednoise_members(base_key, member_idx, shape_n: int, g, a: float = 1.0,
                      dtype=torch.float32):
     """Batch of AR(1) surrogates where member ``i``'s stream is
@@ -241,6 +243,7 @@ def rednoise_members(base_key, member_idx, shape_n: int, g, a: float = 1.0,
     return _ar1_recurrence(z, g)[:, tau:]
 
 
+@span("mc.generate")
 def rednoise_members_pairs(base_key, pair_slots, member_idx, shape_n: int,
                            g, tau: int, dtype=torch.float32):
     """AR(1) surrogates for many coefficients at once: member ``(p, m)``'s

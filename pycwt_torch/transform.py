@@ -27,6 +27,7 @@ from .mothers import Mother, as_mother
 from .ops.fft import (_spectrum_f64, fft_of_real_full, ifft as engine_ifft,
                       resolve_engine)
 from .ops.filterbank import angular_frequencies, apply_filter_bank
+from .utils.profiling import span
 
 __all__ = [
     "ScaleGrid",
@@ -97,6 +98,7 @@ def coi_bartlett(n0: int, dt: float, mother: Mother) -> np.ndarray:
     return mother.flambda() * mother.coi() * dt * tri
 
 
+@span("cwt_batch")
 def cwt_batch(
     signals,
     scales,

@@ -4,20 +4,165 @@ Counterpart of ``pycwt_tpu/utils/profiling.py``, with the same names: a
 ``torch.profiler`` trace context written as a Chrome trace, phase timers
 with achieved-throughput accounting (sample-scales/s), timed by CUDA events
 on the card, and logging of a tensor's layout.
+
+Beside them, the span recorder: named host-time spans at the program's
+layer boundaries (:class:`span`), off by default and switched by
+:func:`enable_spans` / :func:`disable_spans`; :func:`span_summary` gives
+each name's count, total and self nanoseconds.
+
+* ``wct``: ``coherence.wct``, the whole call (API);
+* ``fetch``: ``api._host`` and the Monte-Carlo readout in
+  ``coherence.wct_significance``, the wait for the device's queue and the
+  copy (API, host fetch);
+* ``wct.core``: ``coherence._wct_core``, both routes (WCT core);
+* ``spectrum``: ``ops.fft._spectrum_f64`` (forward DFT);
+* ``fused_cwt``: ``ops.fused_cwt.fused_cwt_planar`` (kernel wrappers);
+* ``smooth``: ``ops.smoothing.smooth`` (smoothing);
+* ``mc``: ``coherence.wct_significance``; ``mc.generate``:
+  ``stats.rednoise_members`` and ``rednoise_members_pairs``;
+  ``mc.histogram``: ``coherence._histogram`` (MC significance);
+* ``cwt_batch``: ``transform.cwt_batch`` (API, long records).
+
+No span synchronizes the device: a span's time is the host's, and a
+``fetch`` holds the wait for the device's queue.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import os
 import time
 
 import torch
+from torch.autograd.profiler import record_function
 
 logger = logging.getLogger("pycwt_torch")
 
-__all__ = ["trace", "PhaseTimer", "log_sharding", "logger"]
+__all__ = ["trace", "PhaseTimer", "log_sharding", "logger", "span",
+           "enable_spans", "disable_spans", "span_summary"]
+
+# --------------------------------------------------------------------------
+# The span recorder
+# --------------------------------------------------------------------------
+
+#: the recorder's switch; a span that finds it off does nothing else
+_on = False
+#: open spans, innermost last: [name, record_function or None, child ns,
+#: start ns]
+_stack: list = []
+#: name -> [count, total ns, self ns] of the spans closed outside a profiler
+_totals: dict = {}
+#: name -> count of the spans taken while a profiler was active
+_profiled: dict = {}
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_now = time.perf_counter_ns
+
+
+def enable_spans() -> None:
+    """Switch the span recorder on and clear its aggregates; a call while
+    it is on does nothing."""
+    global _on
+    if _on:
+        return
+    _stack.clear()
+    _totals.clear()
+    _profiled.clear()
+    _on = True
+
+
+def disable_spans() -> None:
+    """Switch the span recorder off; its aggregates stay readable."""
+    global _on
+    _on = False
+
+
+def span_summary() -> dict:
+    """``{name: {"count", "total_ns", "self_ns", "profiled"}}`` since
+    :func:`enable_spans`: the spans closed outside a profiler, their
+    summed duration and that less their child spans' (the host time of the
+    span's own code), and the count taken while a ``torch.profiler``
+    session was active, which the times leave out."""
+    out = {}
+    for name in _totals.keys() | _profiled.keys():
+        count, total, own = _totals.get(name, (0, 0, 0))
+        out[name] = {"count": count, "total_ns": total, "self_ns": own,
+                     "profiled": _profiled.get(name, 0)}
+    return out
+
+
+def _open(name: str) -> None:
+    rf = None
+    if _profiler_enabled():
+        rf = record_function(name)
+        rf.__enter__()
+    _stack.append([name, rf, 0, _now()])
+
+
+def _close() -> None:
+    t1 = _now()
+    if not _stack:          # opened before the recorder was switched on
+        return
+    name, rf, child, t0 = _stack.pop()
+    dur = t1 - t0
+    if rf is not None:
+        rf.__exit__(None, None, None)
+        _profiled[name] = _profiled.get(name, 0) + 1
+    else:
+        agg = _totals.get(name)
+        if agg is None:
+            agg = _totals[name] = [0, 0, 0]
+        agg[0] += 1
+        agg[1] += dur
+        agg[2] += dur - child
+    if _stack:
+        _stack[-1][2] += dur
+
+
+class span:
+    """A named span of host time, as a context manager or a decorator.
+
+    With the recorder off it tests one module-level bool and does nothing
+    else.  On, it times itself with ``time.perf_counter_ns`` into per-name
+    aggregates (so memory stays constant), and a parent's self time is its
+    duration less its children's.  While a ``torch.profiler`` session is
+    active it also opens ``record_function(name)``, which puts it on the
+    profiler's CPU timeline beside the device's events, and its times are
+    left out of the aggregates, which the profiler would inflate.  A span
+    that raises still closes.  The recorder keeps one stack, for the thread
+    that calls the program.
+    """
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        if _on:
+            _open(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if _on:
+            _close()
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _on:
+                return fn(*args, **kwargs)
+            _open(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _close()
+
+        return spanned
 
 
 @contextlib.contextmanager
@@ -30,22 +175,30 @@ def trace(log_dir: str | None):
     among them), also when the region holds the process's first CUDA call,
     and writes one Chrome trace,
     ``pycwt_torch.<pid>.<ns>.pt.trace.json``, under ``log_dir`` when the
-    region ends.  Open it in Perfetto or ``chrome://tracing``.
+    region ends.  Open it in Perfetto or ``chrome://tracing``.  The spans
+    are on inside the region, so the program's layers (:class:`span`)
+    appear by name above the operations they ran; the recorder is switched
+    back as it was after it.
     """
     if log_dir is None:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
 
+    global _on
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        try:
-            yield
-        finally:
-            if cuda:
-                torch.cuda.synchronize()
+    was_on, _on = _on, True
+    try:
+        with profile(activities=activities) as prof:
+            try:
+                yield
+            finally:
+                if cuda:
+                    torch.cuda.synchronize()
+    finally:
+        _on = was_on
     prof.export_chrome_trace(os.path.join(
         log_dir, f"pycwt_torch.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
 
