@@ -1242,7 +1242,8 @@ def phase_column_plans():
         T16 = fc.stage_a(sr, si, sc, t_dtype=torch.bfloat16, **kw)
         calls = 50 if nfft <= 1 << 16 else 10
         row = dict(plan_a=fc._column_radix_plan(R2), plan_b=fc._column_radix_plan(R1),
-                   cols_a=fc._tile_cols(R2, R1), cols_b=fc._tile_cols(R1, R2),
+                   cols_a=fc._tile_cols(R2, R1),
+                   cols_b=fc._stage_b_cols(R1, R2, torch.float32),
                    cols_b16=fc._stage_b_cols(R1, R2, torch.bfloat16))
         fns = {"a": lambda: fc.stage_a(sr, si, sc, **kw),
                "a16": lambda: fc.stage_a(sr, si, sc, t_dtype=torch.bfloat16, **kw),

@@ -55,28 +55,36 @@
 // type TT of T is a template parameter, float by default: the bf16
 // instantiations (entries cwt_stage_a_bf16, cwt_stage_b_bf16) write T with
 // __float2bfloat16_rn, round to nearest even as astype(jnp.bfloat16), and
-// widen it on load; every other operation is the f32 kernels' own, and the
-// float instantiations compile to the code they had before.  This halves
-// T's round trip: at N = 2^20, S = 64 stage A writes 268.4 MB of T and
-// stage B reads it, about 0.08 ms each at 3.35 TB/s.
-//   The trap is stage B's loads: a row of a column group is cols * 2 bytes,
-//   16 at R1 = 1024 (cols = 8) and 8 at R1 = 2048 (cols = 4), where 32-byte
-//   segments read T at 3.4 times the rate of 16-byte ones in planes mode.
-//   So at R1 = 1024 and 2048 the bf16 instantiations take blocks of 1024
-//   threads (StageB: 64 registers a thread still, one block an SM, the
-//   same 32 warps an SM as two f32 blocks), which hold twice the columns:
-//   16 at R1 = 1024, whose rows of T are then 32 bytes and read straight
-//   into registers, as the f32 kernel reads its 8; 8 at R1 = 2048, where a
-//   pair of blocks (a thread block cluster) stages its 16 columns: each
-//   block copies half of the rows, 32 bytes each, into shared memory after
-//   its FFT buffer with cp.async, and each reads its 8 columns from both
-//   halves, its own and its peer's (distributed shared memory), before its
-//   first pass; a block arrives at a cluster barrier once its reads are
-//   done and waits on it only before it exits.  Both also store W along t
-//   in rows of 16 or 8 floats (64 or 32 bytes), twice the f32 kernel's.
-//   ~142 KB a block at R1 = 1024, ~208 KB at 2048.  Elsewhere the f32
-//   tiles hold: cols >= 16 below R1 = 1024, and rows of 4 and 2 bytes above
-//   2048 (nfft >= 2^24).
+// widen it on load; every other operation is the f32 kernels' own.  This
+// halves T's round trip: at N = 2^20, S = 64 stage A writes 268.4 MB of T
+// and stage B reads it, about 0.08 ms each at 3.35 TB/s.
+//
+// Wide blocks (StageB).  Stage B reads T along c and stores W along t in
+// rows of `cols` elements, and a row shorter than a 32-byte sector leaves
+// the rest of the sector unused.  A 512-thread block holds 8192/R1 columns:
+// 8 f32 at R1 = 1024 (32-byte rows; 53-70 % of the byte bound), but 4 at
+// R1 = 2048, 16-byte rows of T and of W, where the f32 kernel ran its planes
+// at 19.5 % of the bound and its loads alone (power_sum) at 40 %.  So these
+// instantiations take blocks of 1024 threads (still 64 registers a thread,
+// one block an SM: the same 32 warps an SM as two 512-thread blocks), which
+// hold twice the columns, 16384/R1:
+//   - R1 = 2048, f32 T: 8 columns, rows of T and of W 32 bytes; the first
+//     pass reads T straight into registers, the last stores W along t in
+//     rows of 8 floats.  ~142 KB of shared memory.
+//   - R1 = 1024, bf16 T: 16 columns, 32-byte rows of T read straight into
+//     registers, W stored in rows of 16 floats (64 bytes).  ~142 KB.
+//   - R1 = 2048, bf16 T: 8 columns are 16-byte rows of T, and 32-byte
+//     segments read T at 3.4 times the rate of 16-byte ones in planes mode.
+//     So a pair of blocks (a thread block cluster) stages its 16 columns:
+//     each block copies half of the rows, 32 bytes each, into shared memory
+//     after its FFT buffer with cp.async, and each reads its 8 columns from
+//     both halves, its own and its peer's (distributed shared memory),
+//     before its first pass; a block arrives at a cluster barrier once its
+//     reads are done and waits on it only before it exits.  W goes out in
+//     rows of 8 floats, as the f32 kernel's.  ~208 KB a block.
+// Every other instantiation keeps 512 threads, two blocks an SM: its rows
+// are 32 bytes or more up to R1 = 1024 (f32) and 512 (bf16), and 2 and 1
+// columns above R1 = 2048 (nfft >= 2^24).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -120,14 +128,15 @@ __device__ __forceinline__ float load_t(const TT* p) {
 }
 
 // Stage B's block: kThreads threads (kBlocksPerSM an SM) over `cols`
-// columns.  A bf16 T at R1 = 1024 and 2048 takes wide blocks of 1024
-// threads, kCols = 16384/R columns (16 and 8); at R1 = 2048 a pair of them,
-// a cluster, stages its 16 columns (the note at the top).  Every other
-// instantiation keeps the f32 kernel's 512 threads, two blocks an SM.
+// columns.  Both T types at R1 = 2048 and a bf16 T at R1 = 1024 take wide
+// blocks of 1024 threads, kCols = 16384/R columns (8 and 16); a bf16 T at
+// R1 = 2048 runs a pair of them, a cluster, that stages its 16 columns (the
+// note at the top).  Every other instantiation keeps 512 threads, two
+// blocks an SM.
 template <int LOG_R, typename TT>
 struct StageB {
-  static constexpr bool kWide = kIsBf16<TT> && (LOG_R == 10 || LOG_R == 11);
-  static constexpr bool kPair = kWide && LOG_R == 11;
+  static constexpr bool kWide = LOG_R == 11 || (kIsBf16<TT> && LOG_R == 10);
+  static constexpr bool kPair = kIsBf16<TT> && LOG_R == 11;
   static constexpr int kThreads = kWide ? 2 * kMaxThreads : kMaxThreads;
   static constexpr int kBlocksPerSM = kWide ? 1 : kMinBlocks;
   static constexpr int kCols = (16 * kThreads) >> LOG_R;
@@ -612,8 +621,10 @@ cudaError_t cwt_stage_a_bf16(const float* xr, const float* xi, long long x_strid
 
 // T: (rows, R1, R2) f32.  mode 0: out0/out1 = W planes (rows, N); mode 1:
 // out0 = |W|^2 (rows, N); mode 2: out0 = partials (rows, R2/cols) scratch,
-// out1 = sum_t |W|^2 (rows,).  The plan of the length-R1 columns must be
-// _column_radix_plan(R1), padded with 1s.
+// out1 = sum_t |W|^2 (rows,).  cols must be 8 at R1 = 2048 (StageB's wide
+// block), else _tile_cols(R1, R2): ops/fused_cwt.py's _stage_b_cols.  The
+// plan of the length-R1 columns must be _column_radix_plan(R1), padded
+// with 1s.
 cudaError_t cwt_stage_b(const float* tr, const float* ti, float* out0, float* out1,
                         long long rows, int R1, int R2, int cols, int mode,
                         float inv_n, int p0, int p1, int p2, int p3, void* stream) {
@@ -624,7 +635,7 @@ cudaError_t cwt_stage_b(const float* tr, const float* ti, float* out0, float* ou
 
 // cwt_stage_b on a bf16 T (precision="fast"), widened exactly to f32; at
 // R1 = 1024 and 2048 cols must be 16 and 8 (StageB's wide blocks), else
-// _tile_cols(R1, R2) as for cwt_stage_b.
+// _tile_cols(R1, R2).
 cudaError_t cwt_stage_b_bf16(const void* tr, const void* ti, float* out0, float* out1,
                              long long rows, int R1, int R2, int cols, int mode,
                              float inv_n, int p0, int p1, int p2, int p3, void* stream) {
@@ -635,9 +646,9 @@ cudaError_t cwt_stage_b_bf16(const void* tr, const void* ti, float* out0, float*
 
 // cwt_stage_b's planes mode with the stages of `variant` taken out (enum
 // Ablate: 0 full, the kernel itself; 1 no twiddles; 2 no exchange; 3 the
-// in-register DFTs alone; 4 loads and stores alone), the same grid, blocks,
-// shared memory and bytes: T (rows, R1, R2) in, W planes (rows, N) out, for
-// R1 from 16 to 2048.  Counterpart of tools/tpu_relayout_experiment.py's
+// in-register DFTs alone; 4 loads and stores alone), the same grid, blocks
+// (cols as for cwt_stage_b), shared memory and bytes: T (rows, R1, R2) in,
+// W planes (rows, N) out, for R1 from 16 to 2048.  Counterpart of tools/tpu_relayout_experiment.py's
 // ablated kernel B; every variant but 0 computes wrong numbers by design.
 cudaError_t cwt_stage_b_ablation(const float* tr, const float* ti, float* out0,
                                  float* out1, long long rows, int R1, int R2, int cols,

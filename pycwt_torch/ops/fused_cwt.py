@@ -63,12 +63,16 @@ from ._precision import full_f32_matmul
 from .filterbank import angular_frequencies
 
 __all__ = ["fused_cwt", "fused_cwt_planar", "supported_nfft",
-           "KERNEL_LAUNCHES", "stage_a", "stage_b", "cwt_direct"]
+           "KERNEL_LAUNCHES", "STAGE_B_WIDE_LAUNCHES", "stage_a", "stage_b",
+           "cwt_direct"]
 
 #: Launches of each CUDA kernel, counted by its wrapper where it launches;
 #: the ``_bf16`` entries are the stages with a bf16 T (``precision="fast"``).
 KERNEL_LAUNCHES = {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0,
                    "cwt_stage_a_bf16": 0, "cwt_stage_b_bf16": 0}
+#: Launches of the f32 ``cwt_stage_b`` (of ``KERNEL_LAUNCHES["cwt_stage_b"]``)
+#: that ran StageB's wide block: 1024 threads over 8 columns at R1 = 2048
+STAGE_B_WIDE_LAUNCHES = 0
 
 #: T's element types: f32, and bf16 at the ``fast`` tier
 _T_DTYPES = (torch.float32, torch.bfloat16)
@@ -88,9 +92,10 @@ _MODES = {"planes": 0, "power": 1, "power_sum": 2}
 #: shared memory a Hopper block may take (227 KB).
 _BLOCK_POINTS = 8192
 _SMEM_MAX = 232448
-#: R1 where a bf16 T takes cwt_stage_b's wide blocks: 1024 threads over
-#: 16384 points, 16 and 8 columns (StageB in csrc/fused_cwt.cu)
-_WIDE_R1 = (1024, 2048)
+#: R1 where cwt_stage_b takes wide blocks, by T's element type: 1024
+#: threads over 16384 points, 16 columns at R1 = 1024 and 8 at 2048
+#: (StageB in csrc/fused_cwt.cu)
+_WIDE_R1 = {torch.float32: (2048,), torch.bfloat16: (1024, 2048)}
 _WIDE_POINTS = 16384
 
 
@@ -151,12 +156,18 @@ def _t_dtype(precision: str) -> torch.dtype:
     return torch.bfloat16 if precision == "fast" else torch.float32
 
 
+def _stage_b_wide(R1: int, t_dtype) -> bool:
+    """Whether ``cwt_stage_b`` runs a wide block of 1024 threads for T's
+    element type at R1 (:data:`_WIDE_R1`)."""
+    return R1 in _WIDE_R1.get(t_dtype, ())
+
+
 def _stage_b_cols(R1: int, R2: int, t_dtype) -> int:
     """Columns of T one ``cwt_stage_b`` block runs: :func:`_tile_cols`, or
-    for a bf16 T at R1 = 1024 and 2048 twice that, in a block of 1024
-    threads (16 columns, rows of T 32 bytes; 8 at R1 = 2048, where a pair
-    of blocks stages its 16 columns)."""
-    if t_dtype == torch.bfloat16 and R1 in _WIDE_R1:
+    in a wide block (:func:`_stage_b_wide`) twice that, so that T's rows
+    and W's rows are 32 bytes or more: 8 at R1 = 2048 (f32 T, and a bf16 T,
+    whose pair of blocks stages 16 columns), 16 for a bf16 T at 1024."""
+    if _stage_b_wide(R1, t_dtype):
         return min(R2, _WIDE_POINTS // R1)
     return _tile_cols(R1, R2)
 
@@ -528,6 +539,7 @@ def stage_b(tr, ti, *, nfft: int, output: str):
     Σ_t |W|² (see :func:`_stage_b_reference`); a T of any other type raises
     ``ValueError``.  CPU tensors run the plain version, which also takes the
     f64 T that :func:`stage_a` gives for f64 inputs there."""
+    global STAGE_B_WIDE_LAUNCHES
     cpu = _check_device(tr) == "cpu"
     if tr.dtype != ti.dtype or not (
             tr.dtype in _T_DTYPES or (cpu and tr.dtype == torch.float64)):
@@ -564,6 +576,8 @@ def stage_b(tr, ti, *, nfft: int, output: str):
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     KERNEL_LAUNCHES[name] += 1
+    if not bf16 and _stage_b_wide(R1, tr.dtype):
+        STAGE_B_WIDE_LAUNCHES += 1
     if output == "planes":
         return out0, out1
     return out0 if output == "power" else out1

@@ -86,7 +86,7 @@ def ablated_stage_b(tr, ti, *, nfft: int, variant: str):
 
     tr = tr.contiguous()
     ti = ti.contiguous()
-    cols = fc._tile_cols(R1, R2)
+    cols = fc._stage_b_cols(R1, R2, torch.float32)
     fc._check_grid(rows * (R2 // cols))
     out0 = torch.empty((rows, nfft), dtype=torch.float32, device=tr.device)
     out1 = torch.empty_like(out0)

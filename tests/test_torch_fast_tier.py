@@ -3,8 +3,13 @@ version of ``cwt_stage_a_bf16`` → ``cwt_stage_b_bf16`` against pycwt_tpu's
 bf16-T kernels A and B in interpret mode at nfft 2^14 (the smallest nfft
 where pycwt_tpu runs its two kernels, and so a bf16 T), the rounding of T,
 the tiers' routes through the public entry points, the gradient, the T
-types each stage takes, and the staged tile of ``cwt_stage_b_bf16``
-(csrc/fused_cwt.cu) mirrored in numpy."""
+types each stage takes, and cwt_stage_b's blocks (csrc/fused_cwt.cu): their
+columns and shared memory, the staged tile of ``cwt_stage_b_bf16`` and the
+f32 wide block's thread map mirrored in numpy, and the count of wide
+launches."""
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -209,28 +214,104 @@ def test_stages_refuse_other_T_types():
 
 @pytest.mark.parametrize("pow2", [8, 14, 18, 20, 21, 22, 23, 24, 26])
 def test_stage_b_columns_and_shared_memory(pow2):
-    """A bf16 T at R1 = 1024 and 2048 takes cwt_stage_b's wide blocks: 1024
-    threads over twice _tile_cols' columns, 16 (rows of T 32 bytes) and 8
-    (staged by a pair: 16 columns, 32 bytes a row, half of the rows in each
-    block's shared memory after its FFT buffer); each fits in 227 KB, one
-    block an SM.  Elsewhere the f32 tile holds: 32 bytes a row or more below
-    R1 = 1024."""
+    """cwt_stage_b's wide blocks, 1024 threads over twice _tile_cols'
+    columns: both T types at R1 = 2048 (8 columns; an f32 T's rows 32 bytes,
+    read straight; a bf16 T's staged by a pair: 16 columns, 32 bytes a row,
+    half of the rows in each block's shared memory after its FFT buffer),
+    and a bf16 T at R1 = 1024 (16 columns, rows of T 32 bytes); each fits in
+    227 KB, one block an SM.  Elsewhere the 512-thread tile holds: 32 bytes a
+    row or more up to R1 = 1024 for an f32 T and below it for a bf16 T."""
     nfft = 1 << pow2
     R1, R2 = fc._nfft_factors(nfft)
     cols = fc._tile_cols(R1, R2)
-    assert fc._stage_b_cols(R1, R2, torch.float32) == cols
-    wide = fc._stage_b_cols(R1, R2, torch.bfloat16)
-    smem = fc._stage_b_smem_bytes(R1, wide, torch.bfloat16)
-    assert fc._stage_b_smem_bytes(R1, cols, torch.float32) == fc._smem_bytes(R1, cols)
-    if R1 in (1024, 2048):
-        assert wide == 2 * cols and wide * R1 // 16 == 1024 and R2 % (2 * wide) == 0
-        # the FFT buffer and twiddles; at 2048 16-byte aligned, then 64 KB
-        assert smem == {1024: 142080, 2048: 142208 + 65536}[R1]
-        assert smem % 16 == 0 and smem <= fc._SMEM_MAX < 2 * smem
-        assert 2 * {1024: wide, 2048: 2 * wide}[R1] == 32
-    else:
-        assert wide == cols and smem <= fc._SMEM_MAX
-        assert 2 * cols >= 32 or R1 > 2048
+    for t_dtype, size, wide_r1 in ((torch.float32, 4, (2048,)),
+                                   (torch.bfloat16, 2, (1024, 2048))):
+        got = fc._stage_b_cols(R1, R2, t_dtype)
+        smem = fc._stage_b_smem_bytes(R1, got, t_dtype)
+        assert fc._stage_b_wide(R1, t_dtype) == (R1 in wide_r1)
+        if R1 in wide_r1:
+            pair = t_dtype == torch.bfloat16 and R1 == 2048
+            assert got == 2 * cols and got * R1 // 16 == 1024 and R2 % (2 * got) == 0
+            # the FFT buffer and twiddles; a pair's 64 KB half-tile after it
+            assert smem == {1024: 142080, 2048: 142208}[R1] + (65536 if pair else 0)
+            assert smem % 16 == 0 and smem <= fc._SMEM_MAX < 2 * smem
+            assert size * (2 * got if pair else got) == 32
+        else:
+            assert got == cols and smem == fc._smem_bytes(R1, cols) <= fc._SMEM_MAX
+            assert size * cols >= 32 or R1 > 2048
+
+
+@pytest.mark.parametrize("pow2", [22, 23])
+def test_f32_wide_block_mirror(pow2):
+    """cwt_stage_b's f32 wide block at R1 = 2048 (the first pass's loads and
+    the epilogue's stores in csrc/fused_cwt.cu, the thread map of
+    ops/fused_cwt._thread_map), mirrored in numpy: thread (j, lt) of a block
+    loads T[a, c0 + j] for a = lt + r·R1/16, each element of the block's
+    columns exactly once; the W stores along t land every output of those
+    columns exactly once; and each warp's loads of one r, and its stores of
+    one output slot, cover whole 32-byte rows (sectors), 4 of them."""
+    R1, R2 = fc._nfft_factors(1 << pow2)
+    cols = fc._stage_b_cols(R1, R2, torch.float32)
+    threads = cols * R1 // 16
+    assert threads == 1024
+    src, dst = (m.numpy() for m in fc._thread_map(R1, "cpu"))   # (R1/16, 16)
+    tid = np.arange(threads)
+    j, lt = tid % cols, tid // cols
+    c0 = 7 * cols                                              # a block's first column
+    loaded = np.zeros((R1, R2), np.int64)
+    stored = np.zeros(R1 * R2, np.int64)
+    for k in range(16):
+        a = src[lt, k]
+        t = c0 + j + R2 * dst[lt, k]                           # W[row, t]
+        np.add.at(loaded, (a, c0 + j), 1)
+        np.add.at(stored, t, 1)
+        for offsets in (a * R2 + c0 + j, t):                   # f32 elements of a row
+            for w in range(0, threads, 32):
+                byte = 4 * offsets[w:w + 32]
+                sectors, words = np.unique(byte // 32, return_counts=True)
+                assert len(np.unique(byte)) == 32 and len(sectors) == 4
+                assert (words == 8).all()
+    assert (loaded[:, c0:c0 + cols] == 1).all() and loaded.sum() == R1 * cols
+    outputs = (c0 + np.arange(cols))[None, :] + R2 * np.arange(R1)[:, None]
+    assert (stored[outputs] == 1).all() and stored.sum() == R1 * cols
+
+
+@pytest.mark.parametrize("pow2,t_dtype,counted", [
+    (22, torch.float32, True), (23, torch.float32, True), (20, torch.float32, False),
+    (14, torch.float32, False), (22, torch.bfloat16, False)])
+def test_stage_b_wide_launch_counter(monkeypatch, pow2, t_dtype, counted):
+    """STAGE_B_WIDE_LAUNCHES counts the f32 cwt_stage_b launches that ran
+    the wide block (R1 = 2048: nfft 2^22 and 2^23), not those at other R1
+    nor cwt_stage_b_bf16's; the kernel gets _stage_b_cols' columns and
+    power_sum's partials that many columns apiece.  A stand-in for the
+    compiled library takes the launch: the kernels need a card."""
+    from pycwt_torch.ops import _build
+
+    launched = []
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: launched.append((name, args)) or 0
+
+    monkeypatch.setattr(_build, "library", lambda name: Library())
+    monkeypatch.setattr(fc, "_check_device", lambda t: "cuda")
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(fc, "STAGE_B_WIDE_LAUNCHES", 0)
+    monkeypatch.setattr(fc, "KERNEL_LAUNCHES", dict.fromkeys(fc.KERNEL_LAUNCHES, 0))
+    nfft = 1 << pow2
+    R1, R2 = fc._nfft_factors(nfft)
+    T = torch.zeros((2, R1, R2), dtype=t_dtype)
+    fc.stage_b(T, T, nfft=nfft, output="power_sum")
+    name = "cwt_stage_b_bf16" if t_dtype == torch.bfloat16 else "cwt_stage_b"
+    [(called, args)] = launched
+    cols = args[7]
+    assert called == name and fc.KERNEL_LAUNCHES[name] == 1
+    assert fc.STAGE_B_WIDE_LAUNCHES == int(counted)
+    assert cols == fc._stage_b_cols(R1, R2, t_dtype)
+    assert cols == (2 if fc._stage_b_wide(R1, t_dtype) else 1) * fc._tile_cols(R1, R2)
+    assert args[:7] == (T.data_ptr(), T.data_ptr(), args[2], args[3], 2, R1, R2)
 
 
 def test_pair_staging_mirror():

@@ -93,9 +93,8 @@ def test_bf16_stage_b_matches_its_plain_version(cuda, pow2):
     """cwt_stage_b_bf16 on that T: within 1e-5 of max|out| of its plain
     version in every output (the widening is exact), and the f32 kernel on
     the widened T: planes and |W|² bit for bit (each column runs the same
-    arithmetic), the power sums within 1e-6 of their max (at R1 = 1024 and
-    2048 the wide blocks sum 16 or 8 columns' partials where the f32 kernel
-    sums 8 or 4)."""
+    arithmetic), the power sums within 1e-6 of their max (at R1 = 1024 the
+    bf16 wide block sums 16 columns' partials where the f32 kernel sums 8)."""
     nfft = 1 << pow2
     sr, si, sc = _inputs(nfft, True, 1, 3, cuda, seed=pow2)
     T = fc.stage_a(sr, si, sc, mother=pt.Morlet(6), nfft=nfft, dt=1.0,

@@ -134,6 +134,36 @@ def test_each_kernel_matches_its_stage_reference(cuda, half):
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), output
 
 
+@pytest.mark.parametrize("pow2", [22, 23])
+def test_wide_stage_b_matches_its_stage_reference(cuda, pow2):
+    """At nfft 2^22 and 2^23 (R1 = 2048: the f32 wide block, 1024 threads
+    over 8 columns): cwt_stage_b on an f32 T in every output against
+    _stage_b_reference within 1e-5 of the reference's max, each launch
+    counted as wide, and two rows the same bits as each row alone."""
+    nfft = 1 << pow2
+    R1, R2 = fc._nfft_factors(nfft)
+    sr, si, sc = _inputs(nfft, True, 1, 2, cuda, seed=pow2)
+    T = fc.stage_a(sr, si, sc, mother=pt.Morlet(6), nfft=nfft, dt=1.0)
+    assert T[0].shape == (2, R1, R2) and R1 == 2048
+    for output in ("planes", "power", "power_sum"):
+        wide = fc.STAGE_B_WIDE_LAUNCHES
+        got = fc.stage_b(*T, nfft=nfft, output=output)
+        assert fc.STAGE_B_WIDE_LAUNCHES == wide + 1
+        ref = fc._stage_b_reference(*T, nfft=nfft, output=output)
+        one = [fc.stage_b(T[0][i:i + 1], T[1][i:i + 1], nfft=nfft, output=output)
+               for i in range(2)]
+        if output == "planes":
+            for i in range(2):
+                assert torch.equal(got[0][i], one[i][0][0])
+                assert torch.equal(got[1][i], one[i][1][0])
+            got, ref = torch.complex(*got), torch.complex(*ref)
+        else:
+            assert torch.equal(got, torch.cat(one)), output
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), output
+        del got, ref, one
+
+
 def test_wrong_radix_plan_refused(cuda):
     """Each kernel launches only with _column_radix_plan's plan: any other
     returns cudaErrorInvalidValue (1) and writes nothing."""
