@@ -18,6 +18,7 @@ from .mothers import as_mother
 from .stats import significance  # noqa: F401  (re-exported, implemented in stats)
 from .transform import (build_scale_grid, coi_bartlett, cwt_batch,
                         drop_reference_nan_rows)
+from .utils import profiling
 from .utils.profiling import span
 
 __all__ = ["cwt", "cwt_power", "icwt", "significance"]
@@ -35,7 +36,9 @@ def _resolve_device(device) -> torch.device:
 
 @span("fetch")
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    out = t.detach().cpu().numpy()
+    profiling.HOST_BYTES += out.nbytes
+    return out
 
 
 def cwt(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet", freqs=None,
@@ -115,6 +118,7 @@ def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     return _host(wr[:, :n0]), _host(wi[:, :n0]), sj, out_freqs, coi
 
 
+@span("cwt_power")
 def cwt_power(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
               freqs=None, config: CWTConfig = DEFAULT, device=None):
     """Wavelet power ``|W|²``, same grid/COI/NaN-row semantics as

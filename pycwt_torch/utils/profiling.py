@@ -21,10 +21,15 @@ each name's count, total and self nanoseconds.
 * ``mc``: ``coherence.wct_significance``; ``mc.generate``:
   ``stats.rednoise_members`` and ``rednoise_members_pairs``;
   ``mc.histogram``: ``coherence._histogram`` (MC significance);
-* ``cwt_batch``: ``transform.cwt_batch`` (API, long records).
+* ``cwt_batch``: ``transform.cwt_batch`` (API, long records);
+* ``cwt_power``: ``api.cwt_power``, the whole call (API).
 
 No span synchronizes the device: a span's time is the host's, and a
 ``fetch`` holds the wait for the device's queue.
+
+Beside the recorder, :data:`HOST_BYTES` counts the bytes that
+``api._host`` has copied to the host, whether the recorder is on or off;
+:func:`enable_spans` sets it back to 0.
 """
 from __future__ import annotations
 
@@ -58,14 +63,18 @@ _totals: dict = {}
 _profiled: dict = {}
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _now = time.perf_counter_ns
+#: bytes ``api._host`` has copied to the host since :func:`enable_spans`
+#: last switched the recorder on (since import before that)
+HOST_BYTES = 0
 
 
 def enable_spans() -> None:
-    """Switch the span recorder on and clear its aggregates; a call while
-    it is on does nothing."""
-    global _on
+    """Switch the span recorder on and clear its aggregates and
+    :data:`HOST_BYTES`; a call while it is on does nothing."""
+    global _on, HOST_BYTES
     if _on:
         return
+    HOST_BYTES = 0
     _stack.clear()
     _totals.clear()
     _profiled.clear()
