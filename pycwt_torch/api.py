@@ -10,6 +10,8 @@ numpy, as in the JAX package.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -34,9 +36,63 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _quarter_of_ram() -> int:
+    try:
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 4
+    except (AttributeError, ValueError, OSError):
+        return 0
+
+
+#: a result of at least this many bytes comes home through page-locked
+#: memory: on an H100 this fetch beats a fresh pageable one from 256 KiB up
+#: and loses at 128 KiB and below (the probe in PERF.md §6), so a ~45 KB
+#: coherence map stays on the pageable path
+_PINNED_MIN_BYTES = 1 << 18
+#: the most page-locked memory torch's host allocator may hold in this
+#: process when a fetch asks it for a block: its cache keeps a freed block
+#: until the process ends or the cache is emptied
+_PINNED_CAP_BYTES = _quarter_of_ram()
+
+
+def _pool_bytes() -> int:
+    """Bytes of the blocks torch's caching host allocator holds, free or in
+    use."""
+    stats = torch.cuda.memory.host_memory_stats_as_nested_dict()
+    return stats.get("allocated_bytes", {}).get("current", 0)
+
+
+def _pinned(t: torch.Tensor):
+    """``t`` copied into a page-locked block of torch's caching host
+    allocator, as a numpy view of it; the block goes back to the cache when
+    the array dies, so the next fetch of its size finds it faulted in.
+    Where the block (rounded up to a power of two, as the allocator does)
+    could take the pool past :data:`_PINNED_CAP_BYTES`, the cache's idle
+    blocks go back to the system first.  None where ``t`` is under
+    :data:`_PINNED_MIN_BYTES`, where the blocks in use leave no room under
+    the cap, or where the allocation fails."""
+    nbytes = t.numel() * t.element_size()
+    if nbytes < _PINNED_MIN_BYTES:
+        return None
+    size = 1 << (nbytes - 1).bit_length()
+    if _pool_bytes() + size > _PINNED_CAP_BYTES:
+        torch._C._host_emptyCache()     # what torch.cuda.graphs calls too
+        if _pool_bytes() + size > _PINNED_CAP_BYTES:
+            return None
+    try:
+        dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    except RuntimeError:
+        return None
+    dst.copy_(t)        # blocking: the call ends synchronised
+    profiling.HOST_PINNED_FETCHES += 1
+    return dst.numpy()  # holds the block until the array and its views die
+
+
 @span("fetch")
 def _host(t: torch.Tensor) -> np.ndarray:
-    out = t.detach().cpu().numpy()
+    t = t.detach()
+    out = _pinned(t) if t.is_cuda else None
+    if out is None:
+        out = t.cpu().numpy()
     profiling.HOST_BYTES += out.nbytes
     return out
 

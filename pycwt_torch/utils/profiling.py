@@ -28,8 +28,9 @@ No span synchronizes the device: a span's time is the host's, and a
 ``fetch`` holds the wait for the device's queue.
 
 Beside the recorder, :data:`HOST_BYTES` counts the bytes that
-``api._host`` has copied to the host, whether the recorder is on or off;
-:func:`enable_spans` sets it back to 0.
+``api._host`` has copied to the host and :data:`HOST_PINNED_FETCHES` those
+of its fetches that went through page-locked memory, whether the recorder
+is on or off; :func:`enable_spans` sets both back to 0.
 """
 from __future__ import annotations
 
@@ -66,15 +67,17 @@ _now = time.perf_counter_ns
 #: bytes ``api._host`` has copied to the host since :func:`enable_spans`
 #: last switched the recorder on (since import before that)
 HOST_BYTES = 0
+#: ``api._host``'s fetches through page-locked memory, counted alike
+HOST_PINNED_FETCHES = 0
 
 
 def enable_spans() -> None:
-    """Switch the span recorder on and clear its aggregates and
-    :data:`HOST_BYTES`; a call while it is on does nothing."""
-    global _on, HOST_BYTES
+    """Switch the span recorder on and clear its aggregates and the host
+    fetch counters; a call while it is on does nothing."""
+    global _on, HOST_BYTES, HOST_PINNED_FETCHES
     if _on:
         return
-    HOST_BYTES = 0
+    HOST_BYTES = HOST_PINNED_FETCHES = 0
     _stack.clear()
     _totals.clear()
     _profiled.clear()
