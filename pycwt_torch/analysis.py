@@ -15,7 +15,8 @@ Counterpart of ``pycwt_tpu/analysis.py``:
 
 Each takes ``device=None``, meaning the card; on a CUDA device the
 transforms run the planar route (the CUDA kernels), on the CPU the complex
-route in ``torch.get_default_dtype()``.
+route in ``torch.get_default_dtype()``, as ``ops/fft._planar_route`` decides
+for the default policy.
 """
 from __future__ import annotations
 
@@ -27,23 +28,14 @@ import torch
 from . import api
 from .coherence import wct as _wct
 from .coherence import xwt as _xwt
+from .config import DEFAULT
 from .mothers import Mother, as_mother
+from .ops.fft import _planar_route
 from .stats import ar1, ar1_batch
 from .utils.helpers import boxpdf
 
 __all__ = ["CWTAnalysis", "cwt_analysis", "global_spectrum", "xwt_analysis",
            "wct_analysis", "wct_matrix_analysis", "phase_arrows"]
-
-
-def _planar(device, n0: int) -> bool:
-    """Whether the default engine on ``device`` is the planar route and the
-    default FFT length suits it."""
-    from .config import DEFAULT
-    from .ops.fft import resolve_engine
-    from .ops.mxu_dft import supported_n
-
-    return (resolve_engine(DEFAULT.engine, device, DEFAULT.real_dtype) == "planar"
-            and supported_n(DEFAULT.fft_length(n0)))
 
 
 def global_spectrum(signal, dt: float, dj: float = 1 / 12, s0: float = -1,
@@ -63,7 +55,6 @@ def global_spectrum(signal, dt: float, dj: float = 1 / 12, s0: float = -1,
     Returns ``(global_power, scales, freqs)`` with the reference demo's
     variance scaling when ``variance_scaled``.
     """
-    from .config import DEFAULT
     from .ops.spectra import global_power_parseval
     from .transform import build_scale_grid, cwt_batch
 
@@ -150,7 +141,8 @@ def cwt_analysis(
         except Warning:
             alpha = 0.0  # white-noise fallback, as the sample scripts do
 
-    if _planar(device, n0):
+    if _planar_route(DEFAULT.engine, device, DEFAULT.real_dtype,
+                     DEFAULT.fft_length(n0)):
         # power from the kernels' planes; W reassembled on the host
         wr, wi, sj, freqs, coi = api._cwt_planar_parts(
             x, dt, dj=dj, s0=s0, J=J, wavelet=mother, device=device)
@@ -222,7 +214,8 @@ def xwt_analysis(y1, y2, dt, dj=1 / 12, s0=-1, J=-1,
         y2, _, _ = boxpdf(y2)
     kw = dict(dj=dj, s0=s0, J=J, significance_level=significance_level,
               wavelet=mother, device=device)
-    if _planar(device, y1.size):
+    if _planar_route(DEFAULT.engine, device, DEFAULT.real_dtype,
+                     DEFAULT.fft_length(y1.size)):
         from .coherence import xwt_planar
 
         cross_power, phase, coi, freq, signif = xwt_planar(y1, y2, dt, **kw)

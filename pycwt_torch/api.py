@@ -7,6 +7,11 @@ numpy/array-likes and outputs numpy arrays; the transform runs on
 ``device``, which defaults to ``"cuda"``.  Without a card the call raises
 and names ``device="cpu"``: there is no silent CPU run.  ``icwt`` stays host
 numpy, as in the JAX package.
+
+Grids come from ``transform._host_grid``.  ``cwt_power`` asks
+``ops/fft._planar_route``; on the planar route it, ``cwt_analysis`` and
+``xwt_planar`` run :func:`_cwt_planar_parts`: the grid, the kernels' one
+entry ``ops/fused_cwt._planar_cwt_of_real``, the trim.
 """
 from __future__ import annotations
 
@@ -18,8 +23,7 @@ import torch
 from .config import DEFAULT, CWTConfig
 from .mothers import as_mother
 from .stats import significance  # noqa: F401  (re-exported, implemented in stats)
-from .transform import (build_scale_grid, coi_bartlett, cwt_batch,
-                        drop_reference_nan_rows)
+from .transform import _host_grid, cwt_batch
 from .utils import profiling
 from .utils.profiling import span
 
@@ -109,91 +113,70 @@ def cwt(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet", freqs=None,
     device = _resolve_device(device)
     mother = as_mother(wavelet)
     signal = np.asarray(signal)
-    n0 = len(signal)
-
-    grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother, freqs=freqs)
-    nfft = config.fft_length(n0)
-    ftfreqs_np = 2 * np.pi * np.fft.fftfreq(nfft, dt)
-    sj, out_freqs = drop_reference_nan_rows(mother, grid.sj, grid.freqs,
-                                            nfft, dt)
+    g = _host_grid(len(signal), dt, dj, s0, J, mother, config.fft_length, freqs)
 
     # f64 rows: the kernels' route takes their spectrum in f64 and rounds it
     # once; the other routes round the rows to config.real_dtype first
     x = torch.as_tensor(signal[None, :], dtype=torch.float64, device=device)
-    W, signal_ft = cwt_batch(x, torch.as_tensor(sj, device=device), dt,
-                             mother=mother, nfft=nfft, config=config)
+    W, signal_ft = cwt_batch(x, torch.as_tensor(g.sj, device=device), dt,
+                             mother=mother, nfft=g.nfft, config=config)
     W = _host(W[0])
     signal_ft = _host(signal_ft[0])
-
-    coi = coi_bartlett(n0, dt, mother)
     return (
         W,
-        sj,
-        out_freqs,
-        coi,
-        signal_ft[1 : nfft // 2] / nfft ** 0.5,
-        ftfreqs_np[1 : nfft // 2] / (2 * np.pi),
+        g.sj,
+        g.freqs,
+        g.coi,
+        signal_ft[1 : g.nfft // 2] / g.nfft ** 0.5,
+        g.ftfreqs[1 : g.nfft // 2] / (2 * np.pi),
     )
 
 
 def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
                       freqs=None, config: CWTConfig = DEFAULT,
                       output: str = "planes", device=None):
-    """The :func:`cwt` pipeline with planar output through
-    ``fused_cwt_planar`` (same grid/COI/NaN-row semantics as :func:`cwt`).
-    ``output="planes"`` returns ``(wr, wi, sj, freqs, coi)`` with each plane
-    ``(n_scales, n0)`` f32; ``output="power"`` returns ``(power, sj, freqs,
-    coi)`` with |W|² written by the kernel's epilogue.  Needs a pow-2
-    ``nfft``; the kernels run on f32 planes whatever ``config.dtype`` says,
-    from the host signal's spectrum taken in f64 and rounded once to f32
-    planes (``ops/fft._spectrum_f64``)."""
-    from .ops.fft import _spectrum_f64
-    from .ops.fused_cwt import fused_cwt_planar
+    """The :func:`cwt` pipeline on the planar route (same grid/COI/NaN-row
+    semantics as :func:`cwt`): the host grid, ``_planar_cwt_of_real`` on the
+    record's f64 row, the trim to ``n0``.  ``output="planes"`` returns
+    ``(wr, wi, sj, freqs, coi)`` with each plane ``(n_scales, n0)`` f32;
+    ``output="power"`` returns ``(power, sj, freqs, coi)`` with |W|²
+    written by the kernel's epilogue.  Needs a pow-2 ``nfft``; f32 planes
+    whatever ``config.dtype`` says."""
+    from .ops.fused_cwt import _planar_cwt_of_real
 
     device = _resolve_device(device)
     mother = as_mother(wavelet)
     signal = np.asarray(signal)
     n0 = len(signal)
-
-    grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother, freqs=freqs)
-    nfft = config.fft_length(n0)
-    sj, out_freqs = drop_reference_nan_rows(mother, grid.sj, grid.freqs,
-                                            nfft, dt)
-    coi = coi_bartlett(n0, dt, mother)
-
-    spec = _spectrum_f64(torch.as_tensor(signal, dtype=torch.float64,
-                                         device=device), nfft)
-    sr, si = spec.real.contiguous(), spec.imag.contiguous()
-    out = fused_cwt_planar(
-        sr, si, torch.as_tensor(sj, dtype=torch.float32, device=device),
-        mother=mother, nfft=nfft, dt=float(dt), precision=config.precision,
+    g = _host_grid(n0, dt, dj, s0, J, mother, config.fft_length, freqs)
+    out = _planar_cwt_of_real(
+        torch.as_tensor(signal, dtype=torch.float64, device=device), g.sj,
+        mother=mother, nfft=g.nfft, dt=dt, precision=config.precision,
         output=output)
     if output == "power":
-        return _host(out[:, :n0]), sj, out_freqs, coi
+        return _host(out[:, :n0]), g.sj, g.freqs, g.coi
     wr, wi = out
-    return _host(wr[:, :n0]), _host(wi[:, :n0]), sj, out_freqs, coi
+    return _host(wr[:, :n0]), _host(wi[:, :n0]), g.sj, g.freqs, g.coi
 
 
 @span("cwt_power")
 def cwt_power(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
               freqs=None, config: CWTConfig = DEFAULT, device=None):
     """Wavelet power ``|W|²``, same grid/COI/NaN-row semantics as
-    :func:`cwt`.  Under engine ``"planar"`` (the CUDA default for f32) and a pow-2
-    ``nfft`` the kernels write |W|² in their epilogue, so W never leaves
-    the card.
+    :func:`cwt`.  On the planar route (engine ``"planar"``, the CUDA default
+    for f32, and a pow-2 ``nfft``) the kernels write |W|² in their epilogue,
+    so W never leaves the card; below the kernels' 2^8 their plain version
+    does.
 
     Returns ``(power, sj, freqs, coi)`` with ``power`` of shape
     ``(n_scales, n0)``.
     """
-    from .ops.fft import resolve_engine, warn_planar_downcast
-    from .ops.mxu_dft import supported_n
+    from .ops.fft import _planar_route
 
     device = _resolve_device(device)
     signal = np.asarray(signal)
-    nfft = config.fft_length(len(signal))
-    engine = resolve_engine(config.engine, device, config.real_dtype)
-    if engine == "planar" and supported_n(nfft):
-        warn_planar_downcast(config.real_dtype)
+    if _planar_route(config.engine, device, config.real_dtype,
+                     config.fft_length(len(signal))):
         return _cwt_planar_parts(signal, dt, dj=dj, s0=s0, J=J,
                                  wavelet=wavelet, freqs=freqs, config=config,
                                  output="power", device=device)

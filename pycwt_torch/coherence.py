@@ -13,10 +13,12 @@ Counterpart of the single-device surfaces of ``pycwt_tpu/coherence.py``:
   :func:`wct_significance_batch`, the same for many AR(1) nulls at once.
 
 The entry points take ``device=None``, meaning the card; without one they
-raise and name ``device="cpu"``.  On a CUDA tensor in f32 the WCT runs the
-planar pipeline (:func:`_wct_core_planar`): the forward CWTs go through
-``fused_cwt_planar``, so the CUDA kernels ``cwt_stage_a``/``cwt_stage_b``
-run, or ``cwt_direct`` for nfft ≤ 2^12 under ``PYCWT_TPU_SMALL_KERNEL=1``.
+raise and name ``device="cpu"``; each builds its grid in
+``transform._host_grid``.  Where ``ops/fft._planar_route`` says so (f32 on
+the card) the WCT runs :func:`_wct_core_planar`: the rows reach the CUDA
+kernels through ``ops/fused_cwt._planar_cwt_of_real`` (``cwt_direct`` for
+nfft ≤ 2^12 under ``PYCWT_TPU_SMALL_KERNEL=1``), and
+:func:`_planar_coherence`, shared with ``ops/overlap.py``, smooths them.
 
 The Monte-Carlo significance draws its AR(1) surrogates from ``jax.random``'s
 own threefry streams (``stats.rednoise_members*``), so for one seed the port
@@ -38,12 +40,11 @@ import torch
 
 from .config import CWTConfig, DEFAULT
 from .mothers import Mother, as_mother
-from .ops.fft import resolve_engine, warn_planar_downcast
+from .ops.fft import _planar_route, resolve_engine
 from .ops.smoothing import smooth, smooth_planar_pair
 from .stats import (PRNGKey, _burn_in, ar1, ar1_batch, ar1_spectrum,
                     rednoise_members, rednoise_members_pairs, split)
-from .transform import (build_scale_grid, coi_bartlett, cwt_batch,
-                        drop_reference_nan_rows)
+from .transform import _host_grid, build_scale_grid, coi_bartlett, cwt_batch
 from .utils.helpers import find, get_cache_dir
 from .utils.profiling import span
 
@@ -107,22 +108,14 @@ def xwt_planar(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, significance_level=0.95,
     ``phase = arg W12`` (radians); needs a power-of-two FFT length.
     """
     from .api import _cwt_planar_parts
-    from .ops.mxu_dft import supported_n
 
     mother = as_mother(wavelet)
-    nfft_gate = config.fft_length(len(np.asarray(y1)))
-    if not supported_n(nfft_gate):
-        raise ValueError(
-            f"xwt_planar requires a power-of-two FFT length, got nfft="
-            f"{nfft_gate} (n={len(y1)}, pad_pow2={config.pad_pow2}). Use "
-            "CWTConfig(pad_pow2=True) or the complex-engine xwt().")
     y1, y2, y1_n, y2_n, std1, std2 = _normalized(y1, y2, normalize)
     kw = dict(dj=dj, s0=s0, J=J, wavelet=mother, config=config, device=device)
     w1r, w1i, sj, freq, coi = _cwt_planar_parts(y1_n, dt, **kw)
     w2r, w2i, _, _, _ = _cwt_planar_parts(y2_n, dt, **kw)
 
-    w12r = w1r * w2r + w1i * w2i          # W1 · conj(W2), planar
-    w12i = w1i * w2r - w1r * w2i
+    w12r, w12i = _cross((w1r, w1i), (w2r, w2i))
     mag = np.hypot(w12r, w12i)
     phase = np.arctan2(w12i, w12r)
     signif = _xwt_signif(y1, y2, freq, dt, mother, significance_level, std1, std2)
@@ -149,39 +142,49 @@ def _planar_w(y, scales, *, mother: Mother, nfft: int, dt: float,
     return wr[..., :n], wi[..., :n]
 
 
-def _wct_core_planar(y1n, y2n, scales, dt, *, mother: Mother, nfft: int,
-                     dj: float):
-    """:func:`_wct_core` on real f32 planes: the forward spectrum of the rows
-    as given, in f64 rounded once to f32 planes → ``fused_cwt_planar`` (the
-    CUDA kernels on a CUDA tensor) → plane-packed smoothing → coherence and
-    arctan2 phase.  Needs a pow-2 nfft; below the kernels' 2^8 the plain
-    version runs.
+def _cross(w1, w2):
+    """W1 · conj(W2) of two planar pairs ``(re, im)``, as a planar pair."""
+    (w1r, w1i), (w2r, w2i) = w1, w2
+    return w1r * w2r + w1i * w2i, w1i * w2r - w1r * w2i
+
+
+def _planar_coherence(w1, w2, scales, *, dt: float, dj: float,
+                      mother: Mother):
+    """The coherence of two planar transforms ``(wr, wi)``, each ``(..., S,
+    n)`` f32 over ``scales`` ``(S,)``: plane-packed smoothing of the
+    scale-normalized auto- and cross spectra (two ``smooth_planar_pair``
+    calls instead of four single-plane ones), then R² and the arctan2 phase.
 
     Returns ``(WCT, aWCT, (W12r, W12i))``.
     """
-    from .ops.mxu_dft import supported_n
-
-    if not supported_n(nfft):
-        raise ValueError(
-            f"planar WCT needs a power-of-two nfft, got {nfft}. Use "
-            "CWTConfig(pad_pow2=True) or a complex engine ('xla'/'mxu').")
-    y1n = torch.as_tensor(y1n)
-    y2n = torch.as_tensor(y2n).to(device=y1n.device)
-    scales = torch.as_tensor(scales).to(device=y1n.device, dtype=torch.float32)
-    w1r, w1i = _planar_w(y1n, scales, mother=mother, nfft=nfft, dt=dt)
-    w2r, w2i = _planar_w(y2n, scales, mother=mother, nfft=nfft, dt=dt)
+    (w1r, w1i), (w2r, w2i) = w1, w2
     s_col = scales[:, None]
-    # Two plane-packed smoothing calls instead of four single-plane ones.
     S1, S2 = smooth_planar_pair((w1r ** 2 + w1i ** 2) / s_col,
                                 (w2r ** 2 + w2i ** 2) / s_col,
                                 dt, dj, scales, mother)
-    w12r = w1r * w2r + w1i * w2i          # W1 · conj(W2), planar
-    w12i = w1i * w2r - w1r * w2i
+    w12r, w12i = _cross(w1, w2)
     S12r, S12i = smooth_planar_pair(w12r / s_col, w12i / s_col,
                                     dt, dj, scales, mother)
     WCT = (S12r ** 2 + S12i ** 2) / (S1 * S2)
-    aWCT = torch.atan2(w12i, w12r)
-    return WCT, aWCT, (w12r, w12i)
+    return WCT, torch.atan2(w12i, w12r), (w12r, w12i)
+
+
+def _wct_core_planar(y1n, y2n, scales, dt, *, mother: Mother, nfft: int,
+                     dj: float):
+    """:func:`_wct_core` on real f32 planes: each row's trimmed planar CWT
+    (:func:`_planar_w`: the spectrum in f64 rounded once to f32 planes, the
+    CUDA kernels on a CUDA tensor, their plain version below 2^8), then
+    :func:`_planar_coherence`.  Needs a pow-2 nfft.
+
+    Returns ``(WCT, aWCT, (W12r, W12i))``.
+    """
+    y1n = torch.as_tensor(y1n)
+    y2n = torch.as_tensor(y2n).to(device=y1n.device)
+    scales = torch.as_tensor(scales).to(device=y1n.device, dtype=torch.float32)
+    kw = dict(mother=mother, nfft=nfft, dt=dt)
+    return _planar_coherence(_planar_w(y1n, scales, **kw),
+                             _planar_w(y2n, scales, **kw), scales, dt=dt,
+                             dj=dj, mother=mother)
 
 
 def _wct_core(y1n, y2n, scales, dt, *, mother: Mother, nfft: int, dj: float,
@@ -191,15 +194,15 @@ def _wct_core(y1n, y2n, scales, dt, *, mother: Mother, nfft: int, dj: float,
     scale-normalized (co)spectra, coherence magnitude and phase, on the
     inputs' device and, off the planar engine, in their dtype.
 
-    Returns ``(WCT, aWCT, W12)``.  Under engine ``"planar"`` (the CUDA
-    default) the pipeline is :func:`_wct_core_planar` and ``W12`` is the
-    planar pair ``(W12r, W12i)``.
+    Returns ``(WCT, aWCT, W12)``.  On the planar route (``_planar_route``:
+    engine ``"planar"``, the CUDA default for f32, and a pow-2 nfft) the
+    pipeline is :func:`_wct_core_planar` and ``W12`` is the planar pair
+    ``(W12r, W12i)``.
     """
     # a block, not a decorator, whose frame would shift the warning's stacklevel
     with span("wct.core"):
         y1n = torch.as_tensor(y1n)
-        if resolve_engine(engine, y1n.device, y1n.dtype) == "planar":
-            warn_planar_downcast(y1n.dtype)
+        if _planar_route(engine, y1n.device, y1n.dtype, nfft):
             return _wct_core_planar(y1n, y2n, scales, dt, mother=mother,
                                     nfft=nfft, dj=dj)
         cfg = CWTConfig(dtype=y1n.dtype)
@@ -236,38 +239,29 @@ def wct(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, sig=True, significance_level=0.95,
     y1 = np.asarray(y1)
     y2 = np.asarray(y2)
 
-    if s0 == -1:
-        s0 = 2 * dt / mother.flambda()
-    if J == -1:
-        J = int(np.round(np.log2(y1.size * dt / s0) / dj))
-
     _, _, y1_n, y2_n, _, _ = _normalized(y1, y2, normalize)
-    n0 = y1.size
-    grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother)
-    nfft = config.fft_length(n0)
-    # The reference's wct inherits cwt's NaN-row drop: apply the same
-    # host-side drop so Paul-type mothers keep the reference's scale axis.
-    sj, freq = drop_reference_nan_rows(mother, grid.sj, grid.freqs, nfft, dt)
+    # The reference's wct inherits cwt's grid and NaN-row drop, so Paul-type
+    # mothers keep the reference's scale axis.
+    g = _host_grid(y1.size, dt, dj, s0, J, mother, config.fft_length)
     rdt = config.real_dtype
     WCT, aWCT, _ = _wct_core(
         torch.as_tensor(y1_n, dtype=rdt, device=device)[None],
         torch.as_tensor(y2_n, dtype=rdt, device=device)[None],
-        torch.as_tensor(sj, dtype=rdt, device=device),
-        dt, mother=mother, nfft=nfft, dj=dj, engine=config.engine,
+        torch.as_tensor(g.sj, dtype=rdt, device=device),
+        dt, mother=mother, nfft=g.nfft, dj=dj, engine=config.engine,
     )
-    coi = coi_bartlett(n0, dt, mother)
 
     if sig:
         a1, _, _ = ar1(y1)
         a2, _, _ = ar1(y2)
         sig_out = wct_significance(
-            a1, a2, dt=dt, dj=dj, s0=s0, J=J,
+            a1, a2, dt=dt, dj=dj, s0=g.s0, J=g.J,
             significance_level=significance_level, wavelet=mother,
             config=config, device=device, **kwargs,
         )
     else:
         sig_out = np.asarray([0])
-    return _host(WCT[0]), _host(aWCT[0]), coi, freq, sig_out
+    return _host(WCT[0]), _host(aWCT[0]), g.coi, g.freqs, sig_out
 
 
 # --------------------------------------------------------------------------
@@ -288,15 +282,6 @@ def _rows_normalized(y: np.ndarray, normalize: bool) -> np.ndarray:
     if normalize:
         return (y - y.mean(-1, keepdims=True)) / y.std(-1, keepdims=True)
     return y
-
-
-def _pairs_grid(n0: int, dt, dj, s0, J, mother: Mother, config: CWTConfig):
-    """``(sj, freqs, nfft)`` of a batched surface: the TC98 default grid and
-    the reference's NaN-row drop, as :func:`wct` has them."""
-    grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother)
-    nfft = config.fft_length(n0)
-    sj, freqs = drop_reference_nan_rows(mother, grid.sj, grid.freqs, nfft, dt)
-    return sj, freqs, nfft
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -355,22 +340,22 @@ def xwt_pairs(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, significance_level=0.95,
     mother = as_mother(wavelet)
     y1, y2 = _pair_rows(y1, y2, "xwt_pairs")
     B, n0 = y1.shape
-    sj, freqs, nfft = _pairs_grid(n0, dt, dj, s0, J, mother, config)
+    g = _host_grid(n0, dt, dj, s0, J, mother, config.fft_length)
     rdt = config.real_dtype
     blk = pair_block if pair_block is not None else _pairs_block(
-        B, len(sj), nfft, _itemsize(rdt), planes=24)
+        B, len(g.sj), g.nfft, _itemsize(rdt), planes=24)
     y1_n = _rows_normalized(y1, normalize)
     y2_n = _rows_normalized(y2, normalize)
-    sj_t = torch.as_tensor(sj, dtype=rdt, device=device)
-    W12 = torch.empty((B, len(sj), n0), dtype=config.complex_dtype, device=device)
+    sj_t = torch.as_tensor(g.sj, dtype=rdt, device=device)
+    W12 = torch.empty((B, len(g.sj), n0), dtype=config.complex_dtype, device=device)
     for b0 in range(0, B, blk):
         W1, _ = cwt_batch(torch.as_tensor(y1_n[b0:b0 + blk], dtype=rdt, device=device),
-                          sj_t, dt, mother=mother, nfft=nfft, config=config)
+                          sj_t, dt, mother=mother, nfft=g.nfft, config=config)
         W2, _ = cwt_batch(torch.as_tensor(y2_n[b0:b0 + blk], dtype=rdt, device=device),
-                          sj_t, dt, mother=mother, nfft=nfft, config=config)
+                          sj_t, dt, mother=mother, nfft=g.nfft, config=config)
         W12[b0:b0 + blk] = W1 * W2.conj()
-    signif = _pairs_signif(y1, y2, freqs, dt, mother, significance_level, normalize)
-    return _host(W12), coi_bartlett(n0, dt, mother), freqs, signif
+    signif = _pairs_signif(y1, y2, g.freqs, dt, mother, significance_level, normalize)
+    return _host(W12), g.coi, g.freqs, signif
 
 
 def xwt_pairs_planar(y1, y2, dt, dj=1 / 12, s0=-1, J=-1,
@@ -387,38 +372,30 @@ def xwt_pairs_planar(y1, y2, dt, dj=1 / 12, s0=-1, J=-1,
     power-of-two FFT length.
     """
     from .api import _host, _resolve_device
-    from .ops.mxu_dft import supported_n
 
     device = _resolve_device(device)
     mother = as_mother(wavelet)
     y1, y2 = _pair_rows(y1, y2, "xwt_pairs_planar")
     B, n0 = y1.shape
-    nfft = config.fft_length(n0)
-    if not supported_n(nfft):
-        raise ValueError(
-            f"xwt_pairs_planar requires a power-of-two FFT length, got "
-            f"nfft={nfft} (pad_pow2={config.pad_pow2}). Use "
-            "CWTConfig(pad_pow2=True) or the complex-engine xwt_pairs().")
-    sj, freqs, _ = _pairs_grid(n0, dt, dj, s0, J, mother, config)
+    g = _host_grid(n0, dt, dj, s0, J, mother, config.fft_length)
     blk = pair_block if pair_block is not None else _pairs_block(
-        B, len(sj), nfft, 4, planes=24)
+        B, len(g.sj), g.nfft, 4, planes=24)
     y1_n = _rows_normalized(y1, normalize)
     y2_n = _rows_normalized(y2, normalize)
-    sj32 = torch.as_tensor(sj, dtype=torch.float32, device=device)
-    kw = dict(mother=mother, nfft=nfft, dt=dt, precision=config.precision)
-    mag = torch.empty((B, len(sj), n0), dtype=torch.float32, device=device)
+    sj32 = torch.as_tensor(g.sj, dtype=torch.float32, device=device)
+    kw = dict(mother=mother, nfft=g.nfft, dt=dt, precision=config.precision)
+    mag = torch.empty((B, len(g.sj), n0), dtype=torch.float32, device=device)
     phase = torch.empty_like(mag)
     for b0 in range(0, B, blk):
-        w1r, w1i = _planar_w(torch.as_tensor(y1_n[b0:b0 + blk], dtype=torch.float32,
-                                             device=device), sj32, **kw)
-        w2r, w2i = _planar_w(torch.as_tensor(y2_n[b0:b0 + blk], dtype=torch.float32,
-                                             device=device), sj32, **kw)
-        w12r = w1r * w2r + w1i * w2i          # W1 · conj(W2), planar
-        w12i = w1i * w2r - w1r * w2i
+        w12r, w12i = _cross(
+            _planar_w(torch.as_tensor(y1_n[b0:b0 + blk], dtype=torch.float32,
+                                      device=device), sj32, **kw),
+            _planar_w(torch.as_tensor(y2_n[b0:b0 + blk], dtype=torch.float32,
+                                      device=device), sj32, **kw))
         mag[b0:b0 + blk] = torch.sqrt(w12r * w12r + w12i * w12i)
         phase[b0:b0 + blk] = torch.atan2(w12i, w12r)
-    signif = _pairs_signif(y1, y2, freqs, dt, mother, significance_level, normalize)
-    return _host(mag), _host(phase), coi_bartlett(n0, dt, mother), freqs, signif
+    signif = _pairs_signif(y1, y2, g.freqs, dt, mother, significance_level, normalize)
+    return _host(mag), _host(phase), g.coi, g.freqs, signif
 
 
 def wct_pairs(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
@@ -442,25 +419,25 @@ def wct_pairs(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     mother = as_mother(wavelet)
     y1, y2 = _pair_rows(y1, y2, "wct_pairs")
     B, n0 = y1.shape
-    sj, freqs, nfft = _pairs_grid(n0, dt, dj, s0, J, mother, config)
+    g = _host_grid(n0, dt, dj, s0, J, mother, config.fft_length)
     rdt = config.real_dtype
     blk = pair_block if pair_block is not None else _pairs_block(
-        B, len(sj), nfft, _itemsize(rdt))
+        B, len(g.sj), g.nfft, _itemsize(rdt))
     y1_n = _rows_normalized(y1, normalize)
     y2_n = _rows_normalized(y2, normalize)
-    sj_t = torch.as_tensor(sj, dtype=rdt, device=device)
+    sj_t = torch.as_tensor(g.sj, dtype=rdt, device=device)
     WCT = aWCT = None
     for b0 in range(0, B, blk):
         R, A, _ = _wct_core(
             torch.as_tensor(y1_n[b0:b0 + blk], dtype=rdt, device=device),
             torch.as_tensor(y2_n[b0:b0 + blk], dtype=rdt, device=device),
-            sj_t, dt, mother=mother, nfft=nfft, dj=dj, engine=config.engine)
+            sj_t, dt, mother=mother, nfft=g.nfft, dj=dj, engine=config.engine)
         if WCT is None:     # the route sets the dtype: f32 on the planar one
             WCT = R.new_empty((B,) + R.shape[1:])
             aWCT = A.new_empty((B,) + A.shape[1:])
         WCT[b0:b0 + blk] = R
         aWCT[b0:b0 + blk] = A
-    return _host(WCT), _host(aWCT), coi_bartlett(n0, dt, mother), freqs
+    return _host(WCT), _host(aWCT), g.coi, g.freqs
 
 
 def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
@@ -520,9 +497,10 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     if P == 0:
         raise ValueError("no pairs to compute")
 
-    sj, freqs, nfft = _pairs_grid(n0, dt, dj, s0, J, mother, config)
+    g = _host_grid(n0, dt, dj, s0, J, mother, config.fft_length)
+    nfft = g.nfft
     rdt = config.real_dtype
-    S = len(sj)
+    S = len(g.sj)
     # The shared per-signal fields (W planes, self-smoothing and the batched
     # transients at the padded length, ~6 (B, S, nfft) planes at the peak)
     # scale with B, not P: fail fast, on the host, with the alternatives.
@@ -542,13 +520,12 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     WCT, aWCT = _wct_matrix_blocks(
         y_n, torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=device),
         torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=device),
-        torch.as_tensor(sj, dtype=rdt, device=device), dt, mother=mother,
+        torch.as_tensor(g.sj, dtype=rdt, device=device), dt, mother=mother,
         nfft=nfft, dj=dj, engine=config.engine, block=blk,
         precision=config.precision)
-    coi = coi_bartlett(n0, dt, mother)
     if not as_numpy:
-        return WCT, aWCT, coi, freqs, pairs
-    return _host(WCT), _host(aWCT), coi, freqs, pairs
+        return WCT, aWCT, g.coi, g.freqs, pairs
+    return _host(WCT), _host(aWCT), g.coi, g.freqs, pairs
 
 
 def _wct_matrix_blocks(yn, pi, pj, scales, dt, *, mother: Mother, nfft: int,
@@ -566,12 +543,7 @@ def _wct_matrix_blocks(yn, pi, pj, scales, dt, *, mother: Mother, nfft: int,
     from .ops.smoothing import smooth_planar_real
 
     rdt = yn.dtype
-    if resolve_engine(engine, yn.device, rdt) == "planar":
-        from .ops.mxu_dft import supported_n
-
-        if not supported_n(nfft):
-            raise ValueError(f"planar WCT needs a power-of-two nfft, got {nfft}.")
-        warn_planar_downcast(rdt)
+    if _planar_route(engine, yn.device, rdt, nfft):
         scales = scales.to(torch.float32)
         s_col = scales[:, None]
         wr, wi = _planar_w(yn, scales, mother=mother, nfft=nfft, dt=dt,
@@ -580,10 +552,8 @@ def _wct_matrix_blocks(yn, pi, pj, scales, dt, *, mother: Mother, nfft: int,
                                    scales, mother)
 
         def pair_block_maps(ib, jb):
-            w1r, w1i = wr.index_select(0, ib), wi.index_select(0, ib)
-            w2r, w2i = wr.index_select(0, jb), wi.index_select(0, jb)
-            w12r = w1r * w2r + w1i * w2i
-            w12i = w1i * w2r - w1r * w2i
+            w12r, w12i = _cross((wr.index_select(0, ib), wi.index_select(0, ib)),
+                                (wr.index_select(0, jb), wi.index_select(0, jb)))
             S12r, S12i = smooth_planar_pair(w12r / s_col, w12i / s_col,
                                             dt, dj, scales, mother)
             R2 = (S12r ** 2 + S12i ** 2) / (

@@ -7,6 +7,9 @@ Counterpart of ``pycwt_tpu/ops/fft.py`` with the same four engine names:
   kernels (``ops/fused_cwt.py``) for a supported ``nfft`` on a CUDA tensor;
   every auxiliary FFT rides ``torch.fft``.
 
+:func:`_planar_route` decides, for every caller, whether a forward CWT of
+real rows takes the planar route into the kernels.
+
 A non-pow-2 length under a non-``"xla"`` engine goes to ``torch.fft`` with
 the JAX package's fallback warning.
 
@@ -56,15 +59,27 @@ def resolve_engine(engine: str | None = None, device=None, dtype=None) -> str:
 
 
 def warn_planar_downcast(dtype) -> None:
-    """The planar route is f32: say so, at the caller's caller, when an f64
-    computation is sent there (the JAX package's warning), never downcast
-    silently."""
+    """The planar route is f32: say so, at the caller of the function that
+    asked :func:`_planar_route`, when an f64 computation is sent there (the
+    JAX package's warning), never downcast silently."""
     if dtype == torch.float64:
         warnings.warn(
             "engine='planar' computes in float32; float64 inputs are "
             "downcast. Use engine='xla' (or 'mxu') for f64 parity runs.",
-            stacklevel=3,
+            stacklevel=4,
         )
+
+
+def _planar_route(engine: str | None, device, dtype, nfft: int) -> bool:
+    """Whether a forward CWT of real rows in ``dtype`` on ``device`` takes
+    the planar route (``ops/fused_cwt._planar_cwt_of_real``): ``engine``
+    resolves to ``"planar"`` and ``nfft`` is a power of two.  The one place
+    that warns of f64 sent there (:func:`warn_planar_downcast`)."""
+    if (resolve_engine(engine, device, dtype) != "planar"
+            or not mxu_dft.supported_n(nfft)):
+        return False
+    warn_planar_downcast(dtype)
+    return True
 
 
 def _warn_fallback(engine: str, n: int) -> None:

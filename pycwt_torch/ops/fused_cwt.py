@@ -60,7 +60,9 @@ from ..config import _PRECISIONS
 from ..mothers import DOG, Morlet, Mother, Paul
 from ..utils.profiling import span
 from ._precision import full_f32_matmul
+from .fft import _spectrum_f64
 from .filterbank import angular_frequencies
+from .mxu_dft import supported_n
 
 __all__ = ["fused_cwt", "fused_cwt_planar", "supported_nfft",
            "KERNEL_LAUNCHES", "STAGE_B_WIDE_LAUNCHES", "stage_a", "stage_b",
@@ -758,14 +760,18 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
 
 def _planar_cwt_of_real(y, scales, *, mother: Mother, nfft: int, dt: float,
                         precision: str = "highest", output: str = "planes"):
-    """The forward CWT of real rows ``y`` ``(..., n)`` on f32 planes: the
-    spectrum zero-padded to ``nfft``, taken in f64 from the rows as given
-    and rounded once to f32 planes (``ops/fft._spectrum_f64``), then
+    """The planar route's one entry, from real rows to the kernels: the
+    forward CWT of rows ``y`` ``(..., n)`` on f32 planes, the spectrum
+    zero-padded to ``nfft``, taken in f64 from the rows as given and rounded
+    once to f32 planes (``ops/fft._spectrum_f64``), then
     :func:`fused_cwt_planar` (the kernels on a CUDA tensor), or its plain
     version below the kernels' 2^8.  Returns the untrimmed width-``nfft``
-    ``output`` (``"planes"``: ``(wr, wi)``, each ``(..., S, nfft)``)."""
-    from .fft import _spectrum_f64
-
+    ``output`` (``"planes"``: ``(wr, wi)``, each ``(..., S, nfft)``).  A
+    non-pow-2 ``nfft`` raises: the planar route has no other."""
+    if not supported_n(nfft):
+        raise ValueError(
+            f"the planar route needs a power-of-two nfft, got {nfft}. Use "
+            "CWTConfig(pad_pow2=True) or a complex engine ('xla'/'mxu').")
     spec = _spectrum_f64(torch.as_tensor(y), nfft)
     sr, si = spec.real.contiguous(), spec.imag.contiguous()
     scales = torch.as_tensor(scales).to(device=sr.device, dtype=torch.float32)

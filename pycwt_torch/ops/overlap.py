@@ -50,7 +50,6 @@ from ..config import next_pow2
 from ..mothers import Mother
 from ..transform import cwt_batch
 from .fused_cwt import _planar_cwt_of_real
-from .smoothing import smooth_planar_pair
 
 __all__ = [
     "halo_samples",
@@ -328,20 +327,16 @@ def _signal_pair(y1, y2, device, normalize: bool, name: str):
 
 def _wct_chunk_pipeline(slab1, slab2, scales, mother: Mother, nfft: int,
                         dt: float, dj: float, precision: str):
-    """One chunk of the blocked coherence: two planar chunk CWTs →
-    plane-packed smoothing → coherence ratio and phase, ``(S, nfft)`` each."""
+    """One chunk of the blocked coherence: the WCT's planar coherence body
+    (``coherence._planar_coherence``) on the two slabs' untrimmed planar
+    chunk CWTs; the coherence ratio and phase, ``(S, nfft)`` each."""
+    from ..coherence import _planar_coherence
+
     kw = dict(mother=mother, nfft=nfft, dt=dt, precision=precision)
-    w1r, w1i = _planar_cwt_of_real(slab1, scales, **kw)
-    w2r, w2i = _planar_cwt_of_real(slab2, scales, **kw)
-    s_col = scales[:, None]
-    S1, S2 = smooth_planar_pair((w1r ** 2 + w1i ** 2) / s_col,
-                                (w2r ** 2 + w2i ** 2) / s_col,
-                                dt, dj, scales, mother)
-    w12r = w1r * w2r + w1i * w2i
-    w12i = w1i * w2r - w1r * w2i
-    S12r, S12i = smooth_planar_pair(w12r / s_col, w12i / s_col,
-                                    dt, dj, scales, mother)
-    return (S12r ** 2 + S12i ** 2) / (S1 * S2), torch.atan2(w12i, w12r)
+    R, A, _ = _planar_coherence(_planar_cwt_of_real(slab1, scales, **kw),
+                                _planar_cwt_of_real(slab2, scales, **kw),
+                                scales, dt=dt, dj=dj, mother=mother)
+    return R, A
 
 
 def wct_overlap_planar(y1, y2, scales, dt: float, *, mother: Mother,

@@ -36,8 +36,7 @@ import torch
 
 from ..config import CWTConfig, next_pow2
 from ..mothers import Mother, as_mother
-from ..transform import (build_scale_grid, coi_bartlett, cwt_batch,
-                         drop_reference_nan_rows)
+from ..transform import _host_grid, cwt_batch
 
 __all__ = ["df_from_f64", "df_to_f64", "fft_df", "cwt_twofloat",
            "smooth_twofloat", "xwt_twofloat", "wct_twofloat"]
@@ -176,16 +175,13 @@ def _cwt_device(y, dt, dj, s0, J, mother: Mother, freqs, max_bytes, device):
             f"cwt_twofloat expects a 1-D signal or a (B, n0) batch, got "
             f"{y.shape}")
     n0 = y.shape[-1]
-    nfft = next_pow2(n0)
-    grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother,
-                            freqs=freqs)
-    sj, fr = drop_reference_nan_rows(mother, grid.sj, grid.freqs, nfft, dt)
+    g = _host_grid(n0, dt, dj, s0, J, mother, next_pow2, freqs)
     B = y.shape[0] if y.ndim == 2 else 1
-    _check_resident(B, len(sj), nfft, max_bytes)
+    _check_resident(B, len(g.sj), g.nfft, max_bytes)
     device = _resolve_device(device)
     x = torch.as_tensor(y.reshape(B, n0), device=device)
-    W = _cwt_f64(x, sj, dt, mother, nfft)
-    return (W if y.ndim == 2 else W[0]), sj, fr, coi_bartlett(n0, dt, mother)
+    W = _cwt_f64(x, g.sj, dt, mother, g.nfft)
+    return (W if y.ndim == 2 else W[0]), g.sj, g.freqs, g.coi
 
 
 def cwt_twofloat(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet", freqs=None,

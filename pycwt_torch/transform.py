@@ -11,8 +11,12 @@ for f32; f64 resolves to ``"xla"``, cuFFT in f64) the filter bank and the iFFT r
 (``ops/fused_cwt.py``), and an f32 CPU tensor runs their plain version.  On
 those two engines the forward spectrum is taken in f64 from the rows as
 given and rounded once to the compute dtype (``ops/fft._spectrum_f64``);
-``"xla"`` and ``"mxu"`` take it in the compute dtype.  Scale grids, NaN-row
-drops and the COI are host numpy float64, decided before any device work.
+``"xla"`` and ``"mxu"`` take it in the compute dtype.
+
+Every surface builds its host grid in :func:`_host_grid`: scales, NaN-row
+drop, FFT length and COI, host numpy float64, before any device work.  The
+planar route (``ops/fft._planar_route``) enters the kernels through
+``ops/fused_cwt._planar_cwt_of_real`` alone.
 """
 from __future__ import annotations
 
@@ -85,8 +89,13 @@ def drop_reference_nan_rows(mother: Mother, sj: np.ndarray, freqs: np.ndarray,
     """Drop the scale rows that the reference's naive f64 filter formula
     would fill with non-finite values — keeping every row when all are bad,
     as the reference does.  Returns the (possibly filtered) ``(sj, freqs)``."""
-    ftfreqs_np = 2 * np.pi * np.fft.fftfreq(nfft, dt)
-    bad = mother.reference_nan_rows(sj, ftfreqs_np)
+    return _finite_rows(mother, sj, freqs, 2 * np.pi * np.fft.fftfreq(nfft, dt))
+
+
+def _finite_rows(mother: Mother, sj, freqs, ftfreqs):
+    """:func:`drop_reference_nan_rows` on the angular FFT frequencies
+    ``ftfreqs`` = 2π·fftfreq(nfft, dt)."""
+    bad = mother.reference_nan_rows(sj, ftfreqs)
     if (~bad).any():
         return sj[~bad], freqs[~bad]
     return sj, freqs
@@ -96,6 +105,32 @@ def coi_bartlett(n0: int, dt: float, mother: Mother) -> np.ndarray:
     """Cone of influence as Fourier periods: ``λ·coi·dt·(n0/2 − |t − (n0−1)/2|)``."""
     tri = n0 / 2 - np.abs(np.arange(0, n0, dtype=np.float64) - (n0 - 1) / 2)
     return mother.flambda() * mother.coi() * dt * tri
+
+
+class _HostGrid(NamedTuple):
+    """A transform's host grid (numpy float64), from :func:`_host_grid`."""
+
+    sj: np.ndarray        # (S,) scales left by the NaN-row drop
+    freqs: np.ndarray     # (S,) their Fourier-equivalent frequencies
+    nfft: int
+    coi: np.ndarray       # (n0,) Bartlett COI
+    ftfreqs: np.ndarray   # (nfft,) 2π·fftfreq(nfft, dt)
+    s0: float             # the scale grid's s0 and J, defaults resolved
+    J: int
+
+
+def _host_grid(n0: int, dt: float, dj: float, s0: float, J: int,
+               mother: Mother, fft_length, freqs=None) -> _HostGrid:
+    """The host grid of ``n0`` samples padded to ``fft_length(n0)``:
+    :func:`build_scale_grid`, the NaN-row drop on the one angular-frequency
+    array, and :func:`coi_bartlett`, in that order and in f64."""
+    grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother,
+                            freqs=freqs)
+    nfft = fft_length(n0)
+    ftfreqs = 2 * np.pi * np.fft.fftfreq(nfft, dt)
+    sj, freqs = _finite_rows(mother, grid.sj, grid.freqs, ftfreqs)
+    return _HostGrid(sj, freqs, nfft, coi_bartlett(n0, dt, mother), ftfreqs,
+                     grid.s0, grid.J)
 
 
 @span("cwt_batch")

@@ -154,15 +154,94 @@ def test_resolve_engine_dtype_none_follows_default_dtype(monkeypatch):
         torch.set_default_dtype(prev)
 
 
-def test_f64_policy_names_the_cache_as_xla_on_the_card():
-    """The MC cache policy resolves with the dtype too: an f64 config on the
-    card is the reference's xla-f64 regime."""
-    from pycwt_torch.coherence import _resolved_policy
+#: nfft -> the record length that pads to it (100 itself unpadded)
+ROUTE_N0 = {100: 100, 128: 100, 256: 200, 1 << 12: 3000}
 
-    f64 = CWTConfig(dtype=torch.float64)
-    assert _resolved_policy(f64, "cuda") == ("xla", "float64", 1)
-    assert _resolved_policy(CWTConfig(dtype=torch.float32), "cuda") == (
-        "planar", "float32", 1)
+
+@pytest.mark.parametrize("nfft", sorted(ROUTE_N0))
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("engine", [None, "xla", "mxu", "pallas", "planar"])
+def test_f64_policy_names_the_cache_as_xla_on_the_card(monkeypatch, engine, dtype,
+                                                        device, nfft):
+    """The one route decision, ``ops/fft._planar_route``: the planar route is
+    engine "planar" (the default only for f32 on the card) at a pow-2 nfft,
+    and an f64 computation sent there warns.  The MC cache policy resolves
+    with the dtype too (an f64 config on the card is the reference's xla-f64
+    regime) and names the planar engine wherever the route is planar; on the
+    CPU cwt_power, the WCT core and wct_matrix's core take the planar entry
+    (``_planar_cwt_of_real``) exactly where the predicate says so."""
+    from pycwt_torch import coherence as tco
+    from pycwt_torch.coherence import _resolved_policy
+    from pycwt_torch.mothers import Morlet
+
+    monkeypatch.delenv("PYCWT_TPU_ENGINE", raising=False)
+    resolved = engine or ("planar" if (device, dtype) == ("cuda", torch.float32)
+                          else "xla")
+    expect = resolved == "planar" and nfft != 100
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        assert tfft._planar_route(engine, device, dtype, nfft) is expect
+    downcast = [w for w in seen if "float32" in str(w.message)]
+    assert len(downcast) == int(expect and dtype == torch.float64)
+    cfg = CWTConfig(engine=engine, dtype=dtype, pad_pow2=nfft != 100)
+    name = str(dtype).rsplit(".", 1)[-1]
+    assert _resolved_policy(cfg, device) == (resolved, name, int(nfft != 100))
+    if device == "cuda":
+        return
+    calls = []
+    real = fc._planar_cwt_of_real
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fc, "_planar_cwt_of_real", spy)
+    n0 = ROUTE_N0[nfft]
+    y = np.random.default_rng(nfft).standard_normal((2, n0))
+    sc = torch.tensor([2.0, 8.0], dtype=dtype)
+    kw = dict(mother=Morlet(6), nfft=nfft, dj=0.5, engine=engine)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pt.cwt_power(y[0], 1.0, dj=1.0, config=cfg, device="cpu")
+        assert len(calls) == int(expect)
+        tco._wct_core(torch.tensor(y[:1], dtype=dtype), torch.tensor(y[1:], dtype=dtype),
+                      sc, 1.0, **kw)
+        assert len(calls) == 3 * int(expect)
+        tco._wct_matrix_blocks(torch.tensor(y, dtype=dtype), torch.tensor([0]),
+                               torch.tensor([1]), sc, 1.0, block=1, **kw)
+        assert len(calls) == 4 * int(expect)
+
+
+@pytest.mark.parametrize("n0", [64, 100, 128])
+@pytest.mark.parametrize("surface", ["cwt_power", "xwt_planar", "cwt_analysis"])
+def test_planar_route_serves_short_records(monkeypatch, surface, n0):
+    """Below the kernels' 2^8 the planar route runs their plain version (as
+    wct did already) where pycwt_tpu raises: |W|² and the cross spectrum
+    against the complex route in f64 at the f32 bound of
+    test_cwt_power_matches_cwt_abs2."""
+    from pycwt_torch.analysis import cwt_analysis
+
+    rng = np.random.default_rng(n0)
+    x = rng.standard_normal(n0)
+    y = 0.5 * x + rng.standard_normal(n0)
+    planar, f64 = CWTConfig(engine="planar"), CWTConfig(dtype=torch.float64)
+    if surface == "cwt_power":
+        got, *_ = pt.cwt_power(x, 1.0, config=planar, device="cpu")
+        W, *_ = pt.cwt(x, 1.0, config=f64, device="cpu")
+        ref = np.abs(W) ** 2
+    elif surface == "xwt_planar":
+        mag, phase, *_ = pt.xwt_planar(x, y, 1.0, config=planar, device="cpu")
+        got = mag * np.exp(1j * phase)
+        ref, *_ = pt.xwt(x, y, 1.0, config=f64, device="cpu")
+    else:
+        monkeypatch.setenv("PYCWT_TPU_ENGINE", "planar")
+        res = cwt_analysis(x, 1.0, device="cpu")
+        got = res.power
+        W, *_ = pt.cwt(res.signal, 1.0, config=f64, device="cpu")
+        ref = np.abs(W) ** 2
+    assert got.shape == ref.shape and got.shape[1] == n0
+    np.testing.assert_allclose(got, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
 
 
 @pytest.mark.parametrize("precision", ["highest", "high", "fast"])

@@ -298,14 +298,16 @@ def test_analysis_planar_route_matches_complex(monkeypatch, f64):
     y1 = rng.standard_normal(250)
     y2 = 0.5 * y1 + rng.standard_normal(250)
     xref = tan.xwt_analysis(y1, y2, 0.25, device="cpu")
-    monkeypatch.setattr(tan, "_planar", lambda device, n0: True)
-    got = tan.cwt_analysis(ds.values, ds.dt, device="cpu")
+    monkeypatch.setenv("PYCWT_TPU_ENGINE", "planar")
+    with pytest.warns(UserWarning, match="float32"):
+        got = tan.cwt_analysis(ds.values, ds.dt, device="cpu")
     for field in ("power", "sig95", "global_power", "scale_avg", "iwave"):
         a, b = getattr(got, field), getattr(ref, field)
         np.testing.assert_allclose(a, b, atol=5e-5 * np.abs(b).max(), rtol=0,
                                    err_msg=field)
     assert np.iscomplexobj(got.W)
-    xgot = tan.xwt_analysis(y1, y2, 0.25, device="cpu")
+    with pytest.warns(UserWarning, match="float32"):
+        xgot = tan.xwt_analysis(y1, y2, 0.25, device="cpu")
     scale = xref["cross_power"].max()
     np.testing.assert_allclose(xgot["cross_power"], xref["cross_power"],
                                atol=5e-5 * scale, rtol=0)

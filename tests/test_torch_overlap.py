@@ -212,6 +212,25 @@ def test_wct_overlap_planar_matches_global_core_and_jax(f64):
     np.testing.assert_allclose(R.numpy(), np.asarray(Rj), rtol=0, atol=2e-4)
 
 
+def test_wct_chunk_and_core_share_the_planar_body():
+    """A blocked-WCT chunk and the planar WCT core run one coherence body
+    (``coherence._planar_coherence``): on rows already padded to nfft, where
+    the core's trim keeps every column, their R² and phase are the same
+    bits."""
+    from pycwt_torch.coherence import _wct_core
+
+    rng = np.random.default_rng(4)
+    nfft = 1024
+    p1 = torch.tensor(rng.standard_normal(nfft), dtype=torch.float32)
+    p2 = 0.5 * p1 + torch.tensor(rng.standard_normal(nfft), dtype=torch.float32)
+    sc = torch.tensor([4.0, 8.0, 16.0, 32.0])
+    R, A = tov._wct_chunk_pipeline(p1, p2, sc, M6, nfft, 1.0, 0.5, "highest")
+    Rg, Ag, _ = _wct_core(p1, p2, sc, 1.0, mother=M6, nfft=nfft, dj=0.5,
+                          engine="planar")
+    assert R.shape == (4, nfft)
+    assert torch.equal(R, Rg) and torch.equal(A, Ag)
+
+
 def phase_figures(N: int, S: int = 64, chunk: int = 1 << 18, seed: int = 0) -> dict:
     """Each package's blocked WCT phase against its own global planar core,
     as tests/test_overlap.py:209-240 holds it, on the same seeded f32 pair
