@@ -19,6 +19,10 @@ just after:
   both bf16 kernels timed beside the f32 ones at the bench shape and at
   every nfft of the column plans, and every tier of every size of
   ``phase_kernels_vs_plain`` (``fast`` also against the bf16 plain version);
+* K2's epilogues (``phase_stage_b_complex``) at 2^20 × 64, 2^22 × 16 and
+  2^22 × 64 on an f32 and a bf16 T: ``complex`` against ``torch.complex`` of
+  ``planes`` bit for bit, and the device time of ``complex``, ``planes``
+  and ``planes`` plus that assembly;
 * the statistics / XWT / WCT path (``xwt``, ``xwt_planar``,
   ``wct(sig=False)``, ``cwt_analysis``, ``xwt_analysis``, ``wct_analysis``)
   on the default route and on the ``PYCWT_TPU_SMALL_KERNEL=1`` route through
@@ -86,7 +90,9 @@ and one warm ``sample_xwt.run`` on each route instead;
 ``--ab PARENT`` times the 4,000-point WCT and its smoothing, the
 300-member MC run, the 2^24 overlap-save CWT and the bench-shape pipeline
 for an unpacked parent tree and this one in turns, and holds the two
-trees' ``highest`` and ``high`` outputs bit for bit (``_tier_digests``).
+trees' ``highest`` and ``high`` outputs bit for bit (``_tier_digests``);
+``--stage-b-complex`` builds, runs ``phase_stage_b_complex`` and holds the
+f32 kernels' registers and spills against ``PTXAS_BEFORE``, alone.
 Any failure raises: the exit code is then non-zero and no ``ok`` line is
 printed.  Without a CUDA device it exits non-zero at once.
 """
@@ -287,7 +293,8 @@ def _ptxas_usage(out):
     -Xptxas -v`` output, the kernel named with its template arguments:
     ``cwt_stage_b<10>`` for the f32 kernel every caller but ``fast`` runs,
     ``cwt_stage_b<10, bf16>`` for its bf16-T instantiation,
-    ``cwt_stage_b<10, memcopy>`` for an ablation variant."""
+    ``cwt_stage_b<10, memcopy>`` for an ablation variant,
+    ``cwt_stage_b<10, complex>`` for the complex epilogue's."""
     from pycwt_torch.ops import fused_cwt as fc
 
     # a parent tree given to --ab may predate the ablation variants
@@ -303,6 +310,8 @@ def _ptxas_usage(out):
                 args.append(variant[k.group(3)])
             if k and "__nv_bfloat16" in m.group(1):
                 args.append("bf16")
+            if k and "Lb1E" in m.group(1):
+                args.append("complex")
             name = (k.group(1) + (f"<{', '.join(args)}>" if args else "")
                     if k else m.group(1))
             rows.append([name, ""])
@@ -332,7 +341,8 @@ def phase_build():
 
 #: (registers, spill-store bytes, spill-load bytes) of every kernel
 #: instantiation before cwt_stage_b's ablation variants and the bf16-T
-#: instantiations were added, as
+#: instantiations were added, and of the f32 cwt_stage_b's complex epilogue
+#: as first built, as
 #: ``nvcc -Xptxas -v`` of release PTXAS_RELEASE printed them for the
 #: unchanged sources on an NVIDIA H100 80GB HBM3; the kernels the library
 #: runs must keep them.
@@ -351,6 +361,7 @@ PTXAS_BEFORE = {
     "cwt_stage_b<8>": (64, 0, 0), "cwt_stage_b<9>": (64, 16, 24),
     "cwt_stage_b<10>": (64, 8, 8), "cwt_stage_b<11>": (64, 0, 0),
     "cwt_stage_b<12>": (64, 0, 0), "cwt_stage_b<13>": (64, 8, 8),
+    **{f"cwt_stage_b<{r}, complex>": (64, 0, 0) for r in range(4, 14)},
     "cwt_stage_b_reduce": (31, 0, 0),
 }
 
@@ -526,7 +537,8 @@ def _bounds(nfft, S, n_in, R1, R2, t_bytes=4, output="power_sum"):
     t_total = 2 * S * nfft * t_bytes
     a_bytes = 2 * n_in * 4 + S * 4 + t_total
     a_ops = S * (rows_a * R1 * 6 + R1 * 5 * R2 * math.log2(R2) + nfft * 6)
-    b_bytes = t_total + {"power_sum": S, "power": S * nfft, "planes": 2 * S * nfft}[output] * 4
+    b_bytes = t_total + {"power_sum": S, "power": S * nfft, "planes": 2 * S * nfft,
+                         "complex": 2 * S * nfft}[output] * 4
     b_ops = S * (R2 * 5 * R1 * math.log2(R1) + nfft * 5)
     return (a_bytes, a_ops), (b_bytes, b_ops)
 
@@ -631,6 +643,65 @@ def phase_bench_shape():
         bound_a=bound_a, by_a=by_a, bound_b=bound_b, by_b=by_b, err_a=err_a,
         err_b=err_b, tol_a=tol_a, tol_b=tol_b, lib_ms=lib_ms, ms_pipe=ms_pipe,
         plain_pipe=plain_pipe, rate=rate, bytes_a=a_bytes, bytes_b=b_bytes, fast=fast)
+
+
+#: (nfft, scales) at which phase_stage_b_complex times K2's epilogues
+STAGE_B_COMPLEX_SHAPES = ((1 << 20, 64), (1 << 22, 16), (1 << 22, 64))
+
+
+def phase_stage_b_complex(card, rounds=2):
+    """K2's ``complex`` epilogue (``stage_b(output="complex")``) at each
+    STAGE_B_COMPLEX_SHAPES, on the T of K1 (one half spectrum, Morlet-6),
+    f32 and bf16: its W against ``torch.complex`` of the ``planes`` epilogue
+    bit for bit, each launch counted in ``STAGE_B_COMPLEX_LAUNCHES``, then
+    the device time (``device_ms``, 10 calls, median of ``rounds`` rounds in
+    turns) of ``complex``, of ``planes`` and of ``planes`` followed by the
+    assembly that ``fused_cwt`` ran before, with the byte bound of T read
+    and W written once."""
+    import pycwt_torch as pt
+    from pycwt_torch.ops import fused_cwt as fc
+
+    shapes = {}
+    for nfft, S in STAGE_B_COMPLEX_SHAPES:
+        R1, R2 = fc._nfft_factors(nfft)
+        sr, si, sc = _inputs(nfft, True, 1, S, seed=nfft.bit_length())
+        for t_dtype, tname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            T = fc.stage_a(sr, si, sc, mother=pt.Morlet(6), nfft=nfft, dt=1.0,
+                           t_dtype=t_dtype)
+            fns = {
+                "complex": lambda: fc.stage_b(*T, nfft=nfft, output="complex"),
+                "planes": lambda: fc.stage_b(*T, nfft=nfft, output="planes"),
+                "planes+assembly": lambda: torch.complex(
+                    *fc.stage_b(*T, nfft=nfft, output="planes")),
+            }
+            n = fc.STAGE_B_COMPLEX_LAUNCHES
+            got = fns["complex"]()
+            check(fc.STAGE_B_COMPLEX_LAUNCHES == n + 1,
+                  "stage_b(output='complex') was not counted")
+            check(got.dtype == torch.complex64 and got.shape == (S, nfft)
+                  and torch.equal(got, fns["planes+assembly"]()),
+                  f"K2 complex at 2^{nfft.bit_length() - 1} x {S} ({tname} T) is not "
+                  "torch.complex of its planes bit for bit")
+            del got
+            (_, _), (b_bytes, b_ops) = _bounds(nfft, S, nfft // 2, R1, R2,
+                                               t_bytes=T[0].element_size(),
+                                               output="complex")
+            bound, by = _bound_ms(b_bytes, b_ops)
+            ms = {k: [] for k in fns}
+            for _ in range(rounds):
+                for k, fn in fns.items():
+                    ms[k].append(device_ms(fn, calls=10, floor=bound))
+            ms = {k: float(np.median(v)) for k, v in ms.items()}
+            del T
+            torch.cuda.empty_cache()
+            key = f"2^{nfft.bit_length() - 1}x{S} {tname}"
+            shapes[key] = dict(R1=R1, bound_ms=bound, bound_by=by, device_ms=ms,
+                               bound_share={k: bound / v for k, v in ms.items()})
+            log(f"[{card}] K2 epilogues {key} (R1 {R1}; device ms, share of the "
+                f"{bound:.4f} ms bound): " + "; ".join(
+                    f"{k} {v:.4f} ({100 * bound / v:.1f} %)" for k, v in ms.items()) +
+                "; complex == torch.complex(planes) bit for bit")
+    return shapes
 
 
 def _bench_fast_tier(x, scales, kw, spec, ms_pipe_high, dev_pipe_high):
@@ -2950,7 +3021,9 @@ def _relayout_ptxas(usage):
     bf16 = {k: _ptxas_figures(line) for k, line in usage.items() if k.endswith(", bf16>")}
     for kernel, line in usage.items():
         if "," in kernel:
-            log(f"  {'bf16 T' if kernel in bf16 else 'ablation'} {kernel}: {line}")
+            kind = ("bf16 T" if kernel in bf16 else "complex epilogue"
+                    if kernel.endswith(", complex>") else "ablation")
+            log(f"  {kind} {kernel}: {line}")
     if not usage:
         log("  ptxas figures: libraries loaded from an earlier build, not compared")
         return {"nvcc": release, "compared": 0, "bf16": bf16}
@@ -3045,6 +3118,7 @@ def main():
     phase_public_path()
     public_fast = phase_public_fast(card)
     bench = phase_bench_shape()
+    stage_b_complex = phase_stage_b_complex(card)
     phase_gradient()
     worst_direct, direct_vs_f64 = phase_direct_vs_plain()
     phase_slice_path(small=False)
@@ -3201,6 +3275,7 @@ def main():
                             "a16", "b16", "b_ps", "b16_ps", "bound_a16", "bound_b16",
                             "bound_b_ps", "bound_b16_ps")}
                         for n, r in plans.items()},
+                    "stage_b_epilogues_device_ms": stage_b_complex,
                     "fast_pipeline_ms": bench["fast"]["ms_pipe"],
                     "fast_pipeline_device_ms": bench["fast"]["dev_pipe"],
                     "fast_sample_scales_per_s": bench["fast"]["rate"],
@@ -3271,6 +3346,11 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         phase_device()
         phase_ab(sys.argv[2])
+    elif sys.argv[1:] == ["--stage-b-complex"]:
+        card = phase_device()
+        usage = phase_build()
+        phase_stage_b_complex(card)
+        _relayout_ptxas(usage)
     elif sys.argv[1:2] == ["--time-wct"] and len(sys.argv) == 3:
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         phase_device()

@@ -17,7 +17,9 @@ namespace {
 constexpr float kTwoPi = 6.283185307179586f;
 
 enum Mother { kMorlet = 0, kPaul = 1, kDog = 2 };
-enum Mode { kPlanes = 0, kPower = 1, kPowerSum = 2 };
+// Epilogues: W planes, |W|^2, sum_t |W|^2, and interleaved complex64 W
+// (cwt_stage_b only; cwt_direct refuses it).
+enum Mode { kPlanes = 0, kPower = 1, kPowerSum = 2, kComplex = 3 };
 // Stages that an ablation variant of cwt_stage_b takes out of the column FFT
 // (pycwt_torch/tools/relayout_experiment.py), bit flags: kNoTwiddle drops the
 // twiddle multiplies of the passes after the first, kNoExchange the

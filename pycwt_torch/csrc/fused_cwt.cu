@@ -42,7 +42,8 @@
 //     for all its points, and writes T[row, a, c].
 //   cwt_stage_b: one block per (row, tile of consecutive c).  The first pass
 //     loads T[row, a, c-tile] (32-byte segments at cols = 8); the last pass
-//     scales by 1/N and writes W planes, |W|^2, or per-block partial sums of
+//     scales by 1/N and writes W planes, complex64 W (one float2 a point,
+//     the layout of a complex tensor), |W|^2, or per-block partial sums of
 //     |W|^2 (per thread, then a fixed tree over the block) that a second,
 //     fixed-order pass reduces: no float atomics, so a batch gives the same
 //     bits as one signal at a time.
@@ -70,7 +71,8 @@
 // hold twice the columns, 16384/R1:
 //   - R1 = 2048, f32 T: 8 columns, rows of T and of W 32 bytes; the first
 //     pass reads T straight into registers, the last stores W along t in
-//     rows of 8 floats.  ~142 KB of shared memory.
+//     rows of 8 floats (of 8 float2, 64 bytes, in the complex epilogue).
+//     ~142 KB of shared memory.
 //   - R1 = 1024, bf16 T: 16 columns, 32-byte rows of T read straight into
 //     registers, W stored in rows of 16 floats (64 bytes).  ~142 KB.
 //   - R1 = 2048, bf16 T: 8 columns are 16-byte rows of T, and 32-byte
@@ -321,8 +323,11 @@ cwt_stage_a_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // cwt_stage_b_ablation, whose variants take stages out of this same body:
 // kNoTwiddle, kNoExchange and kButterflies out of column_stockham, kMemcopy
 // all of it (the first pass's loads go straight to the epilogue's stores).
-// TT is T's element type; StageB sets the block for it.
-template <int LOG_R, int ABLATE = kFull, typename TT = float>
+// TT is T's element type; StageB sets the block for it.  COMPLEX selects the
+// complex epilogue (mode kComplex) at compile time, so that the other modes'
+// instantiations, which test `mode` at run time, compile as they did before
+// it (the same registers and spills).
+template <int LOG_R, int ABLATE = kFull, typename TT = float, bool COMPLEX = false>
 __global__ void
 __launch_bounds__(StageB<LOG_R, TT>::kThreads, StageB<LOG_R, TT>::kBlocksPerSM)
 cwt_stage_b_kernel(const TT* __restrict__ tr, const TT* __restrict__ ti,
@@ -379,7 +384,9 @@ cwt_stage_b_kernel(const TT* __restrict__ tr, const TT* __restrict__ ti,
       const float wr = v[q * RL + r].x * inv_n;
       const float wi = v[q * RL + r].y * inv_n;
       const long long t = out + (long long)d * R2;
-      if (mode == kPlanes) {
+      if constexpr (COMPLEX) {
+        reinterpret_cast<float2*>(out0)[t] = make_float2(wr, wi);
+      } else if (mode == kPlanes) {
         out0[t] = wr;
         out1[t] = wi;
       } else if (mode == kPower) {
@@ -389,7 +396,7 @@ cwt_stage_b_kernel(const TT* __restrict__ tr, const TT* __restrict__ ti,
       }
     }
   }
-  if (mode == kPowerSum) {
+  if (!COMPLEX && mode == kPowerSum) {
     // Fixed-order tree over the block: the same bits for the same row,
     // whatever the batch.
     __syncthreads();   // the last pass's reads of buf are done
@@ -503,7 +510,7 @@ cudaError_t launch_a(const float* xr, const float* xi, long long x_stride,
 
 // A wide block (StageB) takes exactly kCols columns; a pair of them is
 // launched as a cluster of two blocks.
-template <int LOG_R, int ABLATE = kFull, typename TT = float>
+template <int LOG_R, int ABLATE = kFull, typename TT = float, bool COMPLEX = false>
 cudaError_t launch_b(const TT* tr, const TT* ti, float* out0, float* out1,
                      long long rows, int R2, int cols, int mode, float inv_n,
                      const int* plan, cudaStream_t stream) {
@@ -514,7 +521,7 @@ cudaError_t launch_b(const TT* tr, const TT* ti, float* out0, float* out1,
     return cudaErrorInvalidValue;
   }
   static std::atomic<unsigned long long> done{0};
-  const auto kernel = cwt_stage_b_kernel<LOG_R, ABLATE, TT>;
+  const auto kernel = cwt_stage_b_kernel<LOG_R, ABLATE, TT, COMPLEX>;
   cudaError_t err = allow_smem((const void*)kernel, done);
   if (err != cudaSuccess) return err;
   const long long blocks = rows * (R2 / cols);
@@ -565,12 +572,15 @@ template <typename TT>
 cudaError_t stage_b(const TT* tr, const TT* ti, float* out0, float* out1, long long rows,
                     int R1, int R2, int cols, int mode, float inv_n, const int* plan,
                     cudaStream_t st) {
-  if (rows < 1 || mode < kPlanes || mode > kPowerSum) return cudaErrorInvalidValue;
+  if (rows < 1 || mode < kPlanes || mode > kComplex) return cudaErrorInvalidValue;
   cudaError_t err;
-#define PYCWT_STAGE_B_CASE(LOG_R)                                                    \
-  case 1 << LOG_R:                                                                   \
-    err = launch_b<LOG_R, kFull, TT>(tr, ti, out0, out1, rows, R2, cols, mode, inv_n, \
-                                     plan, st);                                      \
+#define PYCWT_STAGE_B_CASE(LOG_R)                                                      \
+  case 1 << LOG_R:                                                                     \
+    err = mode == kComplex                                                             \
+              ? launch_b<LOG_R, kFull, TT, true>(tr, ti, out0, out1, rows, R2, cols, mode, \
+                                                 inv_n, plan, st)                      \
+              : launch_b<LOG_R, kFull, TT>(tr, ti, out0, out1, rows, R2, cols, mode,   \
+                                           inv_n, plan, st);                           \
     break;
   switch (R1) {
     PYCWT_COLUMN_CASES(PYCWT_STAGE_B_CASE)
@@ -621,10 +631,11 @@ cudaError_t cwt_stage_a_bf16(const float* xr, const float* xi, long long x_strid
 
 // T: (rows, R1, R2) f32.  mode 0: out0/out1 = W planes (rows, N); mode 1:
 // out0 = |W|^2 (rows, N); mode 2: out0 = partials (rows, R2/cols) scratch,
-// out1 = sum_t |W|^2 (rows,).  cols must be 8 at R1 = 2048 (StageB's wide
-// block), else _tile_cols(R1, R2): ops/fused_cwt.py's _stage_b_cols.  The
-// plan of the length-R1 columns must be _column_radix_plan(R1), padded
-// with 1s.
+// out1 = sum_t |W|^2 (rows,); mode 3: out0 = complex64 W (rows, N) as
+// interleaved (re, im) pairs, 8-byte aligned, out1 unused.  cols must be 8
+// at R1 = 2048 (StageB's wide block), else _tile_cols(R1, R2):
+// ops/fused_cwt.py's _stage_b_cols.  The plan of the length-R1 columns must
+// be _column_radix_plan(R1), padded with 1s.
 cudaError_t cwt_stage_b(const float* tr, const float* ti, float* out0, float* out1,
                         long long rows, int R1, int R2, int cols, int mode,
                         float inv_n, int p0, int p1, int p2, int p3, void* stream) {

@@ -21,6 +21,12 @@ stage B widens it back to f32, which halves T's round trip through device
 memory.  The bf16 forms are the entries ``cwt_stage_a_bf16`` and
 ``cwt_stage_b_bf16``, counted apart in :data:`KERNEL_LAUNCHES`.
 
+Epilogues (``output``).  ``cwt_stage_b`` ends in W planes (``"planes"``),
+complex64 W (``"complex"``: one interleaved store a point, the layout of a
+complex tensor, so that :func:`fused_cwt` returns it with no assembly pass),
+|W|² (``"power"``) or Σ_t |W|² (``"power_sum"``).  Its launches in the
+complex epilogue are counted in :data:`STAGE_B_COMPLEX_LAUNCHES` as well.
+
 Dispatch: a CPU tensor runs the plain PyTorch version
 (:func:`_fused_cwt_planar_reference`, the bank × X then ``torch.fft.ifft``;
 at ``fast`` the two stages' plain versions with a bf16 T); a CUDA tensor
@@ -65,8 +71,8 @@ from .filterbank import angular_frequencies
 from .mxu_dft import supported_n
 
 __all__ = ["fused_cwt", "fused_cwt_planar", "supported_nfft",
-           "KERNEL_LAUNCHES", "STAGE_B_WIDE_LAUNCHES", "stage_a", "stage_b",
-           "cwt_direct"]
+           "KERNEL_LAUNCHES", "STAGE_B_WIDE_LAUNCHES", "STAGE_B_COMPLEX_LAUNCHES",
+           "stage_a", "stage_b", "cwt_direct"]
 
 #: Launches of each CUDA kernel, counted by its wrapper where it launches;
 #: the ``_bf16`` entries are the stages with a bf16 T (``precision="fast"``).
@@ -75,6 +81,9 @@ KERNEL_LAUNCHES = {"cwt_stage_a": 0, "cwt_stage_b": 0, "cwt_direct": 0,
 #: Launches of the f32 ``cwt_stage_b`` (of ``KERNEL_LAUNCHES["cwt_stage_b"]``)
 #: that ran StageB's wide block: 1024 threads over 8 columns at R1 = 2048
 STAGE_B_WIDE_LAUNCHES = 0
+#: Launches of ``cwt_stage_b`` and ``cwt_stage_b_bf16`` in the complex
+#: epilogue (``output="complex"``), which store complex64 W themselves
+STAGE_B_COMPLEX_LAUNCHES = 0
 
 #: T's element types: f32, and bf16 at the ``fast`` tier
 _T_DTYPES = (torch.float32, torch.bfloat16)
@@ -86,8 +95,9 @@ _SMALL_KERNEL_MAX = 1 << 12
 #: of them below 1024 (kMinPoints in csrc/direct_cwt.cu)
 _DIRECT_BLOCK_POINTS = 1024
 
-#: epilogue -> the kernels' mode id (enum Mode in csrc/fused_cwt.cu, direct_cwt.cu)
-_MODES = {"planes": 0, "power": 1, "power_sum": 2}
+#: epilogue -> the kernels' mode id (enum Mode in csrc/fft_common.cuh);
+#: ``cwt_direct`` runs "complex" as "planes" and assembles them
+_MODES = {"planes": 0, "power": 1, "power_sum": 2, "complex": 3}
 
 #: Points a cwt_stage_a/cwt_stage_b block holds at most (cols·R ≤ 8192:
 #: 512 threads of 16 points, ~70 KB; two blocks fit on one SM), and the most
@@ -419,6 +429,8 @@ def _column_ifft(x, dim: int):
 def _epilogue(wr, wi, output: str):
     if output == "planes":
         return wr, wi
+    if output == "complex":
+        return torch.complex(wr, wi)
     power = wr * wr + wi * wi
     return power if output == "power" else power.sum(dim=-1)
 
@@ -460,7 +472,8 @@ def _stage_a_reference(sr, si, scales, *, mother: Mother, nfft: int,
 
 def _stage_b_reference(tr, ti, *, nfft: int, output: str, column_fft=_column_ifft):
     """Stage B in PyTorch: T ``(rows, R1, R2)`` → W planes ``(rows, N)`` ×2,
-    |W|² ``(rows, N)``, or Σ_t |W|² ``(rows,)``; ``column_fft`` as in
+    complex W ``(rows, N)``, |W|² ``(rows, N)``, or Σ_t |W|² ``(rows,)``
+    (:func:`_epilogue`); ``column_fft`` as in
     :func:`_stage_a_reference`, of length R1.  A bf16 T is widened to f32
     first (exactly), as ``cwt_stage_b_bf16`` does."""
     if tr.dtype == torch.bfloat16:
@@ -537,11 +550,12 @@ def stage_a(sr, si, scales, *, mother: Mother, nfft: int, dt: float,
 
 def stage_b(tr, ti, *, nfft: int, output: str):
     """Kernel B: planar T ``(rows, R1, R2)``, f32 (``cwt_stage_b``) or bf16
-    (``cwt_stage_b_bf16``, widened exactly to f32), → W planes, |W|² or
-    Σ_t |W|² (see :func:`_stage_b_reference`); a T of any other type raises
+    (``cwt_stage_b_bf16``, widened exactly to f32), → W planes, complex64 W
+    (stored by the kernel, interleaved), |W|² or Σ_t |W|² (see
+    :func:`_stage_b_reference`); a T of any other type raises
     ``ValueError``.  CPU tensors run the plain version, which also takes the
     f64 T that :func:`stage_a` gives for f64 inputs there."""
-    global STAGE_B_WIDE_LAUNCHES
+    global STAGE_B_WIDE_LAUNCHES, STAGE_B_COMPLEX_LAUNCHES
     cpu = _check_device(tr) == "cpu"
     if tr.dtype != ti.dtype or not (
             tr.dtype in _T_DTYPES or (cpu and tr.dtype == torch.float64)):
@@ -565,6 +579,9 @@ def stage_b(tr, ti, *, nfft: int, output: str):
     kw = dict(dtype=torch.float32, device=tr.device)
     if output == "planes":
         out0, out1 = torch.empty((rows, nfft), **kw), torch.empty((rows, nfft), **kw)
+    elif output == "complex":
+        # interleaved (re, im) floats: the kernel stores one float2 a point
+        out0, out1 = torch.empty((rows, nfft), dtype=torch.complex64, device=tr.device), None
     elif output == "power":
         out0, out1 = torch.empty((rows, nfft), **kw), None
     else:
@@ -580,9 +597,11 @@ def stage_b(tr, ti, *, nfft: int, output: str):
     KERNEL_LAUNCHES[name] += 1
     if not bf16 and _stage_b_wide(R1, tr.dtype):
         STAGE_B_WIDE_LAUNCHES += 1
+    if output == "complex":
+        STAGE_B_COMPLEX_LAUNCHES += 1
     if output == "planes":
         return out0, out1
-    return out0 if output == "power" else out1
+    return out1 if output == "power_sum" else out0
 
 
 def cwt_direct(sr, si, scales, *, mother: Mother, nfft: int, dt: float,
@@ -590,10 +609,15 @@ def cwt_direct(sr, si, scales, *, mother: Mother, nfft: int, dt: float,
     """Kernel K3: ``(B, n_in)`` planar spectra and ``(S,)`` scales → W planes
     ``(B, S, nfft)`` ×2, |W|² ``(B, S, nfft)`` or Σ_t |W|² ``(B, S)``, f32,
     for pow-2 nfft in [2^8, 2^12]: one launch, an on-chip inverse FFT per
-    row with the epilogue inside.  CPU tensors run :func:`_direct_reference`."""
+    row with the epilogue inside.  ``"complex"`` is the planes, assembled
+    into complex64 W after the launch.  CPU tensors run
+    :func:`_direct_reference`."""
     if _check_device(sr) == "cpu":
         return _direct_reference(sr, si, scales, mother=mother, nfft=nfft, dt=dt,
                                  output=output)
+    if output == "complex":
+        return torch.complex(*cwt_direct(sr, si, scales, mother=mother, nfft=nfft,
+                                         dt=dt, output="planes"))
     from ._build import library
 
     B, n_in = sr.shape
@@ -693,6 +717,8 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
     ``n_in`` is ``nfft`` (full spectrum) or, for analytic mothers, ``nfft/2``
     (``fft_of_real_planar(half=True)``).  ``output`` selects the epilogue:
     ``"planes"`` (default) returns ``(wr, wi)`` each ``(..., S, nfft)``;
+    ``"complex"`` returns complex64 W ``(..., S, nfft)``, stored by
+    ``cwt_stage_b`` itself (``cwt_direct`` assembles its planes);
     ``"power"`` returns |W|² ``(..., S, nfft)``; ``"power_sum"`` returns
     Σ_t |W|² ``(..., S)`` (the legacy ``power_only=True``).  ``Ablk``,
     ``Cblk`` (the Pallas kernels' block sizes) and ``interpret`` (Pallas's
@@ -725,7 +751,7 @@ def fused_cwt_planar(sig_r, sig_i, scales, *, mother: Mother, nfft: int,
             f"output='power_sum' but output={output!r} was passed — drop "
             f"power_only (deprecated) and pass output= alone")
     if output not in _MODES:
-        raise ValueError(f"output must be planes|power|power_sum, got {output!r}")
+        raise ValueError(f"output must be planes|complex|power|power_sum, got {output!r}")
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
     if not supported_nfft(nfft):
@@ -787,14 +813,11 @@ def fused_cwt(signal_ft, scales, *, mother: Mother, nfft: int, dt: float,
               interpret: bool = False, precision: str = "highest",
               small_kernel: bool | None = None):
     """Complex-input convenience wrapper over :func:`fused_cwt_planar`:
-    returns complex W ``(..., S, nfft)`` (un-trimmed), or Σ_t |W|² when
-    ``power_only``.  ``Ablk``, ``Cblk`` and ``interpret`` are accepted and
-    ignored, as there."""
-    out = fused_cwt_planar(signal_ft.real.to(torch.float32),
-                           signal_ft.imag.to(torch.float32), scales,
-                           mother=mother, nfft=nfft, dt=dt,
-                           power_only=power_only, precision=precision,
-                           small_kernel=small_kernel)
-    if power_only:
-        return out
-    return torch.complex(*out)
+    returns complex W ``(..., S, nfft)`` (un-trimmed; the ``"complex"``
+    epilogue), or Σ_t |W|² when ``power_only``.  ``Ablk``, ``Cblk`` and
+    ``interpret`` are accepted and ignored, as there."""
+    return fused_cwt_planar(signal_ft.real.to(torch.float32),
+                            signal_ft.imag.to(torch.float32), scales,
+                            mother=mother, nfft=nfft, dt=dt,
+                            output="power_sum" if power_only else "complex",
+                            precision=precision, small_kernel=small_kernel)

@@ -388,6 +388,76 @@ def test_autograd_function_replays_plain_version():
     torch.testing.assert_close(g, g_ref, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("precision", ["highest", "fast"])
+@pytest.mark.parametrize("spec", range(len(SPECTRA)), ids=SIDS)
+def test_complex_epilogue_equals_assembled_planes(spec, precision):
+    """The ``complex`` epilogue is the planes assembled by ``torch.complex``,
+    bit for bit: stage B's plain version on an f32 and a bf16 T, and
+    ``fused_cwt_planar`` on the CPU route of each tier (the plain transform
+    at ``highest``, the two stages' plain versions through ``_FusedCWT`` at
+    ``fast``)."""
+    _, t, half = SPECTRA[spec]
+    nfft = 1 << 12
+    sr, si = (torch.tensor(a) for a in _spectrum(nfft, half, seed=spec))
+    sc = torch.tensor(SCALES[:4], dtype=torch.float32)
+    kw = dict(mother=t, nfft=nfft, dt=0.5)
+    T = fc._stage_a_reference(sr[None], si[None], sc, t_dtype=fc._t_dtype(precision), **kw)
+    got = fc._stage_b_reference(*T, nfft=nfft, output="complex")
+    want = torch.complex(*fc._stage_b_reference(*T, nfft=nfft, output="planes"))
+    assert got.dtype == torch.complex64 and torch.equal(got, want)
+    got = fc.fused_cwt_planar(sr, si, sc, output="complex", precision=precision, **kw)
+    want = torch.complex(
+        *fc.fused_cwt_planar(sr, si, sc, output="planes", precision=precision, **kw))
+    assert got.shape == (4, nfft) and got.dtype == torch.complex64
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("small_kernel", [False, True], ids=["default", "small_kernel"])
+@pytest.mark.parametrize("spec", range(len(SPECTRA)), ids=SIDS)
+def test_fused_cwt_returns_the_complex_epilogue(spec, small_kernel):
+    """``fused_cwt`` takes the ``complex`` epilogue: its W is the planes'
+    ``torch.complex``, bit for bit, on the default route and on the
+    ``small_kernel`` route (K3's plain version, whose planes are assembled)."""
+    _, t, half = SPECTRA[spec]
+    nfft = 1 << 12
+    sr, si = (torch.tensor(np.stack(a)) for a in zip(
+        _spectrum(nfft, half, seed=spec), _spectrum(nfft, half, seed=spec + 9)))
+    sc = torch.tensor(SCALES[:3], dtype=torch.float32)
+    kw = dict(mother=t, nfft=nfft, dt=1.0, small_kernel=small_kernel)
+    W = fc.fused_cwt(torch.complex(sr, si), sc, **kw)
+    want = torch.complex(*fc.fused_cwt_planar(sr, si, sc, output="planes", **kw))
+    assert W.shape == (2, 3, nfft) and W.dtype == torch.complex64
+    assert torch.equal(W, want)
+    assert torch.equal(fc.fused_cwt_planar(sr, si, sc, output="complex", **kw), want)
+
+
+@pytest.mark.parametrize("spec", range(len(SPECTRA)), ids=SIDS)
+def test_complex_epilogue_gradient_equals_planes_gradient(spec):
+    """At ``precision="fast"`` a CPU tensor runs ``_FusedCWT``, whose
+    backward replays the f32 plain version in the epilogue asked for: the
+    gradient of a real loss of the complex output equals that of the same
+    loss taken through the planes, for the spectrum and the scales."""
+    _, t, half = SPECTRA[spec]
+    nfft = 1 << 12
+    sr0, si0 = (torch.tensor(a) for a in _spectrum(nfft, half, seed=spec))
+    sc0 = torch.tensor(SCALES[:3], dtype=torch.float32)
+    rng = np.random.default_rng(spec)
+    a, b = (torch.tensor(rng.standard_normal((3, nfft)), dtype=torch.float32)
+            for _ in range(2))
+    kw = dict(mother=t, nfft=nfft, dt=1.0, precision="fast")
+
+    def grads(output):
+        sr, si, sc = (v.clone().requires_grad_() for v in (sr0, si0, sc0))
+        out = fc.fused_cwt_planar(sr, si, sc, output=output, **kw)
+        wr, wi = (out.real, out.imag) if output == "complex" else out
+        loss = (a * wr + b * wi).sum() + (wr * wr + wi * wi).sum() / nfft
+        return torch.autograd.grad(loss, (sr, si, sc))
+
+    for got, want in zip(grads("complex"), grads("planes")):
+        assert bool(want.abs().max() > 0)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("n0", [3000, 10000], ids=["nfft4096", "nfft16384"])
 def test_cwt_power_slice_matches_jax(n0):
     """The whole slice: host grid, forward DFT, fused CWT with the |W|²

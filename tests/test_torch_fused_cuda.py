@@ -38,7 +38,7 @@ def _inputs(nfft, half, B, S, device, seed=0):
 
 
 @pytest.mark.parametrize("tier", sorted(TIER_BOUND))
-@pytest.mark.parametrize("output", ["planes", "power", "power_sum"])
+@pytest.mark.parametrize("output", ["planes", "power", "power_sum", "complex"])
 @pytest.mark.parametrize("pow2", [8, 9, 10, 11, 13, 14, 16, 18, 20, 22])
 def test_kernels_match_plain_version(cuda, pow2, output, tier):
     """Every column plan from R = 16 to 2048 in both kernels (cwt_stage_a's
@@ -162,6 +162,51 @@ def test_wide_stage_b_matches_its_stage_reference(cuda, pow2):
         assert got.shape == ref.shape
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), output
         del got, ref, one
+
+
+@pytest.mark.parametrize("t_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pow2, S", [(20, 64), (22, 16)], ids=["2^20x64", "2^22x16"])
+def test_complex_epilogue_equals_assembled_planes(cuda, pow2, S, t_dtype):
+    """K2's ``complex`` epilogue stores ``torch.complex`` of its ``planes``
+    bit for bit, at R1 = 1024 and at R1 = 2048 (the wide block), on an f32
+    and a bf16 T of S > 1 rows; each launch counted once in
+    ``STAGE_B_COMPLEX_LAUNCHES``, a ``planes`` launch not."""
+    nfft = 1 << pow2
+    sr, si, sc = _inputs(nfft, True, 1, S, cuda, seed=pow2)
+    T = fc.stage_a(sr, si, sc, mother=pt.Morlet(6), nfft=nfft, dt=1.0, t_dtype=t_dtype)
+    assert T[0].shape == (S,) + fc._nfft_factors(nfft) and T[0].dtype == t_dtype
+    n = fc.STAGE_B_COMPLEX_LAUNCHES
+    got = fc.stage_b(*T, nfft=nfft, output="complex")
+    assert fc.STAGE_B_COMPLEX_LAUNCHES == n + 1
+    want = torch.complex(*fc.stage_b(*T, nfft=nfft, output="planes"))
+    assert fc.STAGE_B_COMPLEX_LAUNCHES == n + 1
+    assert got.shape == (S, nfft) and got.dtype == torch.complex64
+    assert torch.equal(got, want)
+
+
+def test_cwt_batch_takes_the_complex_epilogue(cuda):
+    """``cwt_batch`` at 2^22 runs K2 in the ``complex`` epilogue, one launch
+    a call, and its W is ``torch.complex`` of the ``planes`` epilogue on the
+    same spectrum, bit for bit; ``power_sum`` does not count."""
+    from pycwt_torch.ops.fft import _spectrum_f64
+    from pycwt_torch.transform import cwt_batch
+
+    nfft = 1 << 22
+    x = torch.tensor(np.random.default_rng(22).standard_normal((1, nfft)),
+                     dtype=torch.float32, device=cuda)
+    sc = torch.tensor([2.0, 16.0, 128.0], device=cuda)
+    n = fc.STAGE_B_COMPLEX_LAUNCHES
+    for i in range(2):
+        W, _ = cwt_batch(x, sc, 1.0, mother=pt.Morlet(6), nfft=nfft)
+        assert fc.STAGE_B_COMPLEX_LAUNCHES == n + i + 1
+    spec = _spectrum_f64(x, nfft)
+    kw = dict(mother=pt.Morlet(6), nfft=nfft, dt=1.0)
+    planes = fc.fused_cwt_planar(spec.real.contiguous(), spec.imag.contiguous(), sc,
+                                 output="planes", **kw)
+    assert W.dtype == torch.complex64 and torch.equal(W, torch.complex(*planes))
+    fc.fused_cwt_planar(spec.real.contiguous(), spec.imag.contiguous(), sc,
+                        output="power_sum", **kw)
+    assert fc.STAGE_B_COMPLEX_LAUNCHES == n + 2
 
 
 def test_wrong_radix_plan_refused(cuda):
