@@ -45,6 +45,7 @@ from .ops.smoothing import smooth, smooth_planar_pair
 from .stats import (PRNGKey, _burn_in, ar1, ar1_batch, ar1_spectrum,
                     rednoise_members, rednoise_members_pairs, split)
 from .transform import _host_grid, build_scale_grid, coi_bartlett, cwt_batch
+from .utils import profiling
 from .utils.helpers import find, get_cache_dir
 from .utils.profiling import span
 
@@ -440,6 +441,7 @@ def wct_pairs(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     return _host(WCT), _host(aWCT), g.coi, g.freqs
 
 
+@span("wct_matrix")
 def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
                normalize=True, config: CWTConfig = DEFAULT, pairs=None,
                pair_block: int | None = None, max_bytes: float = 12e9,
@@ -470,11 +472,20 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
         for all ``i < j`` pairs.
     pair_block: pairs a block (``None``: :func:`_pairs_block`'s model).
     max_bytes: resident-set budget for the shared ``(B, S, nfft)`` fields.
-    as_numpy: ``False`` returns the maps as tensors on ``device``,
-        unfetched (the 32-station maps are ~450 MB).
+    as_numpy: ``True`` (the default) fetches both maps to host numpy
+        through ``api._host``, ``2·P·S·n0·4`` bytes in f32: ~450 MB for 32
+        stations of 1024 samples (496 pairs, 110 scales).  ``False``
+        returns them as tensors on ``device``, unfetched.
 
     Returns ``(WCT, aWCT, coi, freq, pairs)`` with ``WCT``/``aWCT`` of shape
     ``(P, S, n0)`` and ``pairs`` the ``(P, 2)`` index array used.
+
+    **Tracing** (``utils.profiling``): the span ``wct_matrix`` holds the
+    call, ``wct_matrix.fields`` the shared transforms and self-smoothings,
+    ``wct_matrix.pairs`` the loop over the blocks of pairs, and ``fetch``
+    each map's copy to the host; the counters ``profiling.MATRIX_PAIRS``
+    and ``profiling.MATRIX_PAIR_BLOCKS`` add the pairs computed and the
+    blocks run.
     """
     from .api import _host, _resolve_device
 
@@ -543,43 +554,49 @@ def _wct_matrix_blocks(yn, pi, pj, scales, dt, *, mother: Mother, nfft: int,
     from .ops.smoothing import smooth_planar_real
 
     rdt = yn.dtype
-    if _planar_route(engine, yn.device, rdt, nfft):
-        scales = scales.to(torch.float32)
-        s_col = scales[:, None]
-        wr, wi = _planar_w(yn, scales, mother=mother, nfft=nfft, dt=dt,
-                           precision=precision)
-        Sself = smooth_planar_real((wr ** 2 + wi ** 2) / s_col, dt, dj,
-                                   scales, mother)
+    with span("wct_matrix.fields"):
+        if _planar_route(engine, yn.device, rdt, nfft):
+            scales = scales.to(torch.float32)
+            s_col = scales[:, None]
+            wr, wi = _planar_w(yn, scales, mother=mother, nfft=nfft, dt=dt,
+                               precision=precision)
+            Sself = smooth_planar_real((wr ** 2 + wi ** 2) / s_col, dt, dj,
+                                       scales, mother)
 
-        def pair_block_maps(ib, jb):
-            w12r, w12i = _cross((wr.index_select(0, ib), wi.index_select(0, ib)),
-                                (wr.index_select(0, jb), wi.index_select(0, jb)))
-            S12r, S12i = smooth_planar_pair(w12r / s_col, w12i / s_col,
-                                            dt, dj, scales, mother)
-            R2 = (S12r ** 2 + S12i ** 2) / (
-                Sself.index_select(0, ib) * Sself.index_select(0, jb))
-            return R2, torch.atan2(w12i, w12r)
-    else:
-        s_col = scales[:, None]
-        cfg = CWTConfig(dtype=rdt, engine=engine, precision=precision)
-        W, _ = cwt_batch(yn, scales, dt, mother=mother, nfft=nfft, config=cfg)
-        Sself = smooth(W.abs() ** 2 / s_col, dt, dj, scales, mother, engine=engine)
+            def pair_block_maps(ib, jb):
+                w12r, w12i = _cross((wr.index_select(0, ib), wi.index_select(0, ib)),
+                                    (wr.index_select(0, jb), wi.index_select(0, jb)))
+                S12r, S12i = smooth_planar_pair(w12r / s_col, w12i / s_col,
+                                                dt, dj, scales, mother)
+                R2 = (S12r ** 2 + S12i ** 2) / (
+                    Sself.index_select(0, ib) * Sself.index_select(0, jb))
+                return R2, torch.atan2(w12i, w12r)
+        else:
+            s_col = scales[:, None]
+            cfg = CWTConfig(dtype=rdt, engine=engine, precision=precision)
+            W, _ = cwt_batch(yn, scales, dt, mother=mother, nfft=nfft, config=cfg)
+            Sself = smooth(W.abs() ** 2 / s_col, dt, dj, scales, mother,
+                           engine=engine)
 
-        def pair_block_maps(ib, jb):
-            W12 = W.index_select(0, ib) * torch.conj(W.index_select(0, jb))
-            S12 = smooth(W12 / s_col, dt, dj, scales, mother, engine=engine)
-            R2 = S12.abs() ** 2 / (Sself.index_select(0, ib) * Sself.index_select(0, jb))
-            return R2, torch.angle(W12)
+            def pair_block_maps(ib, jb):
+                W12 = W.index_select(0, ib) * torch.conj(W.index_select(0, jb))
+                S12 = smooth(W12 / s_col, dt, dj, scales, mother, engine=engine)
+                R2 = S12.abs() ** 2 / (Sself.index_select(0, ib)
+                                       * Sself.index_select(0, jb))
+                return R2, torch.angle(W12)
 
     P = pi.shape[0]
     WCT = aWCT = None
-    for b0 in range(0, P, block):
-        R2, A = pair_block_maps(pi[b0:b0 + block], pj[b0:b0 + block])
-        if WCT is None:
-            WCT = R2.new_empty((P,) + R2.shape[1:])
-            aWCT = A.new_empty((P,) + A.shape[1:])
-        WCT[b0:b0 + block] = R2
-        aWCT[b0:b0 + block] = A
+    with span("wct_matrix.pairs"):
+        for b0 in range(0, P, block):
+            R2, A = pair_block_maps(pi[b0:b0 + block], pj[b0:b0 + block])
+            if WCT is None:
+                WCT = R2.new_empty((P,) + R2.shape[1:])
+                aWCT = A.new_empty((P,) + A.shape[1:])
+            WCT[b0:b0 + block] = R2
+            aWCT[b0:b0 + block] = A
+            profiling.MATRIX_PAIR_BLOCKS += 1
+            profiling.MATRIX_PAIRS += R2.shape[0]
     return WCT, aWCT
 
 

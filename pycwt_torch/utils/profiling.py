@@ -22,15 +22,22 @@ each name's count, total and self nanoseconds.
   ``stats.rednoise_members`` and ``rednoise_members_pairs``;
   ``mc.histogram``: ``coherence._histogram`` (MC significance);
 * ``cwt_batch``: ``transform.cwt_batch`` (API, long records);
-* ``cwt_power``: ``api.cwt_power``, the whole call (API).
+* ``cwt_power``: ``api.cwt_power``, the whole call (API);
+* ``wct_matrix``: ``coherence.wct_matrix``, the whole call (API);
+  ``wct_matrix.fields``: the signals' shared transforms and
+  self-smoothings in ``coherence._wct_matrix_blocks``, and
+  ``wct_matrix.pairs``: its loop over the blocks of pairs (WCT pairs).
 
 No span synchronizes the device: a span's time is the host's, and a
 ``fetch`` holds the wait for the device's queue.
 
 Beside the recorder, :data:`HOST_BYTES` counts the bytes that
-``api._host`` has copied to the host and :data:`HOST_PINNED_FETCHES` those
-of its fetches that went through page-locked memory, whether the recorder
-is on or off; :func:`enable_spans` sets both back to 0.
+``api._host`` has copied to the host, :data:`HOST_PINNED_FETCHES` those
+of its fetches that went through page-locked memory, and
+:data:`MATRIX_PAIRS` and :data:`MATRIX_PAIR_BLOCKS` the pairs whose maps
+``coherence._wct_matrix_blocks`` computed and the blocks it ran them in,
+whether the recorder is on or off; :func:`enable_spans` sets all four back
+to 0.
 """
 from __future__ import annotations
 
@@ -69,15 +76,19 @@ _now = time.perf_counter_ns
 HOST_BYTES = 0
 #: ``api._host``'s fetches through page-locked memory, counted alike
 HOST_PINNED_FETCHES = 0
+#: pairs whose coherence maps ``coherence._wct_matrix_blocks`` computed,
+#: and the blocks of pairs it ran, counted alike
+MATRIX_PAIRS = 0
+MATRIX_PAIR_BLOCKS = 0
 
 
 def enable_spans() -> None:
-    """Switch the span recorder on and clear its aggregates and the host
-    fetch counters; a call while it is on does nothing."""
-    global _on, HOST_BYTES, HOST_PINNED_FETCHES
+    """Switch the span recorder on and clear its aggregates and the
+    counters; a call while it is on does nothing."""
+    global _on, HOST_BYTES, HOST_PINNED_FETCHES, MATRIX_PAIRS, MATRIX_PAIR_BLOCKS
     if _on:
         return
-    HOST_BYTES = HOST_PINNED_FETCHES = 0
+    HOST_BYTES = HOST_PINNED_FETCHES = MATRIX_PAIRS = MATRIX_PAIR_BLOCKS = 0
     _stack.clear()
     _totals.clear()
     _profiled.clear()
