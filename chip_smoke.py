@@ -92,7 +92,9 @@ and one warm ``sample_xwt.run`` on each route instead;
 for an unpacked parent tree and this one in turns, and holds the two
 trees' ``highest`` and ``high`` outputs bit for bit (``_tier_digests``);
 ``--stage-b-complex`` builds, runs ``phase_stage_b_complex`` and holds the
-f32 kernels' registers and spills against ``PTXAS_BEFORE``, alone.
+f32 kernels' registers and spills against ``PTXAS_BEFORE``, alone;
+``--mc-generator`` builds and runs ``phase_mc_generator`` (the MC
+generator's kernels against its torch code on the card, timed), alone.
 Any failure raises: the exit code is then non-zero and no ``ok`` line is
 printed.  Without a CUDA device it exits non-zero at once.
 """
@@ -126,6 +128,7 @@ DIRECT_SIZES = [1 << p for p in range(8, 13)]
 OUTPUTS = ("planes", "power", "power_sum")
 KERNEL_SOURCE = "pycwt_torch/csrc/fused_cwt.cu"
 DIRECT_SOURCE = "pycwt_torch/csrc/direct_cwt.cu"
+MC_SOURCE = "pycwt_torch/csrc/mc_noise.cu"
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
 #: f32 bounds of the slice's path against the f64 goldens (rel_err):
 #: tests/test_tpu_chip.py:43, tests/test_engines.py:170, :156
@@ -1393,7 +1396,8 @@ def phase_mc_significance():
     """The Monte-Carlo WCT significance on the card, on the golden JAO/JBaltic
     pair's null (S = 76, n = 885, nfft = 1024, 300 members, seed 7):
     wct_significance on both kernel routes against the golden's bands with
-    the route's launches counted; curves and summed histograms at mc_batch
+    the route's launches counted, the generator kernels' too (one
+    ``mc_fold_in`` and two ``mc_rednoise`` a chunk); curves and summed histograms at mc_batch
     300/64/7 bit for bit; the chunk's forward transform (2·300 rows) against
     the plain version; no host sync inside a run of chunks; the 300-member
     run timed on both routes with its peak memory per member against
@@ -1409,6 +1413,7 @@ def phase_mc_significance():
     from pycwt_torch.analysis import wct_analysis
     from pycwt_torch.config import CWTConfig
     from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops import mc_noise
     from pycwt_torch.ops.mxu_dft import fft_of_real_planar
     from pycwt_torch.sample import load
 
@@ -1428,9 +1433,16 @@ def phase_mc_significance():
             with _route(small):
                 r = out["routes"][name] = {}
                 _reset_counts()
+                for k in mc_noise.LAUNCHES:
+                    mc_noise.LAUNCHES[k] = 0
                 sig95 = tco.wct_significance(al1, al2, **mc)
                 torch.cuda.synchronize()
                 r["launches"] = dict(fc.KERNEL_LAUNCHES)
+                r["mc_launches"] = dict(mc_noise.LAUNCHES)
+                chunks = -(-MC_COUNT // auto)
+                check(r["mc_launches"] == {"mc_fold_in": chunks, "mc_rednoise": 2 * chunks},
+                      f"MC {name}: generator launches {r['mc_launches']} for {chunks} "
+                      "chunks, not one mc_fold_in and two mc_rednoise a chunk")
                 r["bands"] = _mc_bands(sig95, ref, f"MC {name}")
                 want = (("cwt_direct",) if small else ("cwt_stage_a", "cwt_stage_b"))
                 check(all(r["launches"][k] > 0 for k in want)
@@ -1490,7 +1502,7 @@ def phase_mc_significance():
                 r["peak_per_member"] = (torch.cuda.max_memory_allocated() - base) / auto
                 r["sig95"] = sig95
             log(f"MC {name}: auto mc_batch {auto}, peak {r['peak_per_member']:.4e} bytes a member, "
-                f"launches {r['launches']}, bands max {r['bands'][0]:.4f} mean "
+                f"launches {r['launches']}, generator launches {r['mc_launches']}, bands max {r['bands'][0]:.4f} mean "
                 f"{r['bands'][1]:.4f}, chunk transform vs plain {r['chunk_err']:.3e} of "
                 f"max|W|; R2 rows, curves and histograms at mc_batch {auto}/64/7 "
                 f"bit-identical; no host sync in a run of chunks")
@@ -1575,6 +1587,105 @@ def phase_mc_significance():
         f"{out['batch_ms']:.4f} ms, pair_block 8 and 3 bit-identical, launches {blaunch}; "
         f"wct_analysis(sig=True) bands max {out['analysis_bands'][0]:.4f} mean "
         f"{out['analysis_bands'][1]:.4f}, launches {alaunch}")
+    return out
+
+
+def phase_mc_generator(card, calls=20):
+    """The generator of one 300-member chunk (``wct_mc300``'s shape, the
+    golden's g): ``split`` and the two signals' ``rednoise_members`` at
+    (300, n 885) in f32, through the kernels (``mc_fold_in``, then
+    ``mc_rednoise`` twice) and through the torch code on the card, in turns;
+    the rows bit for bit; host ms to enqueue a call (median of 21, after a
+    synchronize), device ms (torch.profiler over ``calls`` calls), launches
+    a call, and the kernels' bound by bytes (the rows written, the keys and
+    indices read, at 3.35 TB/s); then each kernel's device ms and launches a
+    call, and its own bound, from one more profile of the kernel path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pycwt_torch import stats as tst
+    from pycwt_torch.ops import mc_noise
+
+    _, al1, al2, kw = _mc_args()
+    n = _mc_chunk_inputs()[0]
+    key = tst.PRNGKey(MC_SEED, device="cuda")
+    idx = torch.arange(MC_COUNT, device="cuda")
+
+    def draw():
+        k1, k2 = tst.split(key)
+        return [tst.rednoise_members(k, idx, n, a, dtype=torch.float32)
+                for k, a in ((k1, al1), (k2, al2))]
+
+    on_card, out, rows = tst._on_card, {"card": card, "n": n, "members": MC_COUNT}, {}
+    for path in ("kernel", "torch", "torch", "kernel"):
+        tst._on_card = on_card if path == "kernel" else (lambda key: False)
+        try:
+            before = dict(mc_noise.LAUNCHES)
+            rows[path] = draw()
+            torch.cuda.synchronize()
+            launches = sum(mc_noise.LAUNCHES.values()) - sum(before.values())
+            host = []
+            for _ in range(21):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                draw()
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            dev = device_ms(draw, calls=calls)
+        finally:
+            tst._on_card = on_card
+        r = out.setdefault(path, {"host_ms": [], "device_ms": [], "launches": launches})
+        r["host_ms"].append(float(np.median(host)))
+        r["device_ms"].append(dev)
+    check(all(torch.equal(a, b) for a, b in zip(rows["kernel"], rows["torch"])),
+          "MC generator: the kernels' rows differ from the torch path's")
+    check(out["kernel"]["launches"] == 3,
+          f"MC generator: {out['kernel']['launches']} kernel launches a call, not 3")
+    nbytes = sum(r.numel() * r.element_size() for r in rows["kernel"]) + 16 * MC_COUNT
+    out["bound_ms"] = nbytes / PEAK_BYTES * 1e3
+    out["bound_bytes"] = nbytes
+    for path in ("kernel", "torch"):
+        r = out[path]
+        r["host_ms_median"] = float(np.median(r["host_ms"]))
+        r["device_ms_median"] = float(np.median(r["device_ms"]))
+    out["bound_share"] = out["bound_ms"] / out["kernel"]["device_ms_median"]
+    # each kernel alone: fold_in writes two keys from one, rednoise the full
+    # n + tau rows (the views' storage) from the keys and the indices
+    kbytes = {"mc_fold_in": 3 * 16,
+              "mc_rednoise": sum(r.untyped_storage().nbytes() + 8 * MC_COUNT + 16
+                                 for r in rows["kernel"])}
+    # launches from the counter; device ms a launch from the records CUPTI
+    # kept (it drops one now and then), times the launches a call
+    draw()
+    torch.cuda.synchronize()
+    before = dict(mc_noise.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            draw()
+        torch.cuda.synchronize()
+    recorded = _device_rows(prof, 1)
+    out["kernels"] = {}
+    for name in mc_noise.LAUNCHES:
+        launches = (mc_noise.LAUNCHES[name] - before[name]) / calls
+        ms = sum(r[0] for r in recorded if f"{name}_kernel" in r[2])
+        records = sum(r[1] for r in recorded if f"{name}_kernel" in r[2])
+        check(records > 0, f"MC generator: the profiler recorded no {name} launch")
+        dev = ms / records * launches
+        bound = kbytes[name] / PEAK_BYTES * 1e3
+        out["kernels"][name] = dict(device_ms=dev, launches_per_call=launches,
+                                    records_lost=calls * launches - records, bound_ms=bound,
+                                    bound_bytes=kbytes[name], bound_share=bound / dev)
+    check({k: r["launches_per_call"] for k, r in out["kernels"].items()}
+          == {"mc_fold_in": 1, "mc_rednoise": 2},
+          f"MC generator: launches a call {out['kernels']}")
+    log("MC generator, each kernel a call: " + ", ".join(
+        f"{k} {r['device_ms']:.5f} ms x{r['launches_per_call']:g}, bound {r['bound_ms']:.6f} "
+        f"ms ({r['bound_bytes']} bytes)" for k, r in out["kernels"].items()))
+    log(f"MC generator (split + 2 x rednoise_members, 300 x {n}, f32), kernel/torch in "
+        f"turns: host {out['kernel']['host_ms']} / {out['torch']['host_ms']} ms to "
+        f"enqueue, device {out['kernel']['device_ms']} / {out['torch']['device_ms']} ms, "
+        f"launches {out['kernel']['launches']} / {out['torch']['launches']} (kernel "
+        f"counter), bound {out['bound_ms']:.5f} ms by bytes ({nbytes} bytes, "
+        f"{100 * out['bound_share']:.2f} % of it); rows bit for bit")
     return out
 
 
@@ -3136,6 +3247,7 @@ def main():
         rx.LAUNCHES[v] = 0
     phase_direct_gradient()
     mc = phase_mc_significance()
+    mc_generator = phase_mc_generator(card)
     pairs = phase_pairs(card)
     dog = phase_dog_repair(card)
     long = phase_long(card)
@@ -3241,6 +3353,31 @@ def main():
         k["sharded_launches_per_call_per_rank"] = {
             run: {srf: r["launches"][name] for srf, r in res.items()}
             for run, res in par["runs"].items()}
+    for name, tpu in (("mc_fold_in", "jax.random.split / fold_in under XLA, no Pallas kernel"),
+                      ("mc_rednoise", "jax.random.normal and an associative scan under XLA, "
+                                      "no Pallas kernel")):
+        gen = mc_generator["kernels"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=MC_SOURCE,
+            replaces=("pycwt_tpu/coherence.py:863" if name == "mc_fold_in"
+                      else "pycwt_tpu/stats.py:162"),
+            tpu_kernel=tpu,
+            launches=mc["routes"]["default"]["mc_launches"][name],
+            mc_launches_per_300_members={route: r["mc_launches"][name]
+                                         for route, r in mc["routes"].items()},
+            launches_per_generator_call=gen["launches_per_call"],
+            max_abs_err=0.0, tolerance="bit for bit: torch.equal with the torch code's "
+                                       "words and rows on the card",
+            ms=gen["device_ms"], ms_by="torch.profiler device time per call of split + "
+                                       "2 x rednoise_members",
+            plain_ms=mc_generator["torch"]["device_ms_median"],
+            plain_call="the torch code on the card, the whole generator call",
+            host_ms=mc_generator["kernel"]["host_ms_median"],
+            plain_host_ms=mc_generator["torch"]["host_ms_median"],
+            bound_ms=gen["bound_ms"], bound_by="bytes", bound_share=gen["bound_share"],
+            bound_bytes=gen["bound_bytes"],
+            shape=f"2 x {MC_COUNT} members, n {mc_generator['n']}, f32, the golden's al1/al2",
+            card=card))
     jax_shape = relayout["shapes"]["2^20x64"]
     variants = [r for sh in relayout["shapes"].values() for r in sh["variants"].values()]
     kernels.append(dict(
@@ -3285,6 +3422,7 @@ def main():
                     "mc_model_bytes_per_member": mc["model_per_member"],
                     "mc_auto_batch": mc["auto_batch"], "mc_generator_ms": mc["generator_ms"],
                     "mc_batch_8_nulls_ms": mc["batch_ms"],
+                    "mc_generator": mc_generator,
                     "mc_vs_cpu_f64_max_abs": mc["vs_cpu_f64"],
                     "wct_matrix_32_stations_ms": {
                         k: r["ms"] for k, r in pairs["routes"].items()},
@@ -3346,6 +3484,10 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         phase_device()
         phase_ab(sys.argv[2])
+    elif sys.argv[1:] == ["--mc-generator"]:
+        card = phase_device()
+        phase_build()
+        phase_mc_generator(card)
     elif sys.argv[1:] == ["--stage-b-complex"]:
         card = phase_device()
         usage = phase_build()

@@ -24,12 +24,14 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 #: library name -> its CUDA source in csrc/
-SOURCES = {"fused_cwt": "fused_cwt.cu", "direct_cwt": "direct_cwt.cu"}
+SOURCES = {"fused_cwt": "fused_cwt.cu", "direct_cwt": "direct_cwt.cu",
+           "mc_noise": "mc_noise.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_V, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_V, _I, _LL, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float, ctypes.c_double)
 
 #: C signatures: function -> (argtypes, restype); cudaError_t is an int.
 _SIGNATURES = {
@@ -49,6 +51,13 @@ _SIGNATURES = {
     "direct_cwt": {
         "cwt_direct": ([_V, _V, _LL, _V, _V, _V, _I, _I, _I, _I, _I, _F,
                         _I, _F, _F, _F, _F, _I, _I, _I, _I, _V], _I),
+    },
+    "mc_noise": {
+        "mc_fold_in": ([_V, _V, _V, _LL, _V, _V, _V], _I),
+        "mc_rednoise_f32": ([_V, _V, _V, _V, _I, _I, _I, _I, _D, _V, _D, _D,
+                             _D, _I, _V, _V], _I),
+        "mc_rednoise_f64": ([_V, _V, _V, _V, _I, _I, _I, _I, _D, _V, _D, _D,
+                             _D, _I, _V, _V], _I),
     },
 }
 

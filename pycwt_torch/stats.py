@@ -15,7 +15,11 @@ Counterpart of ``pycwt_tpu/stats.py`` with the same names and contracts:
   as ``jax.random`` keys them (:func:`PRNGKey`, :func:`fold_in`,
   :func:`split`), and f64 normals as ``jax.random.normal`` makes them
   (:func:`_normal_f64`).  The same seed gives ``pycwt_tpu``'s f64
-  surrogates, on the CPU and on the card alike;
+  surrogates, on the CPU and on the card alike.  A key on a CUDA device
+  takes the generator kernels of ``ops/mc_noise.py`` (one launch for a
+  split or fold-in, one for a chunk of surrogate rows), which give the
+  torch code's words, normals and rows bit for bit; a CPU key runs the torch
+  code, their plain version;
 * :func:`significance` — TC98 eqs. 16/18/23/25-28 with the f64 host PPF
   (``ops/special.py``), keeping deviations 3 and 4 of ``docs/parity.md``.
 """
@@ -28,6 +32,8 @@ import numpy as np
 import torch
 
 from .mothers import as_mother
+from .ops import mc_noise
+from .utils import profiling
 from .utils.helpers import find
 from .utils.profiling import span
 
@@ -163,6 +169,12 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _NORMAL_LO = float(np.nextafter(-1.0, np.inf))
 
 
+def _on_card(key) -> bool:
+    """A key on a CUDA device takes the generator kernels
+    (``ops/mc_noise.py``); a CPU key the torch code of this module."""
+    return key[0].device.type == "cuda"
+
+
 def _threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 with 20 rounds (Salmon et al. 2011), the block cipher of
     ``jax.random``'s default generator: key words ``(k0, k1)`` encrypt the
@@ -191,6 +203,8 @@ def PRNGKey(seed: int, device=None):
 def fold_in(key, data):
     """``jax.random.fold_in``: the key threefry2x32(key, (0, data)), for an
     int64 tensor (or int) ``data`` of any shape — one key per element."""
+    if _on_card(key):
+        return mc_noise.fold_in(key, data)
     data = torch.as_tensor(data, dtype=torch.int64, device=key[0].device)
     return _threefry2x32(key[0], key[1], torch.zeros_like(data), data & _MASK32)
 
@@ -198,6 +212,8 @@ def fold_in(key, data):
 def split(key, num: int = 2):
     """``jax.random.split``: key j is threefry2x32(key, (0, j)); returns a
     list of ``num`` keys."""
+    if _on_card(key):
+        return mc_noise.split(key, num)
     k0, k1 = fold_in(key, torch.arange(num, device=key[0].device))
     return [(k0[j], k1[j]) for j in range(num)]
 
@@ -219,6 +235,13 @@ def _normal_f64(key, length: int) -> torch.Tensor:
     return math.sqrt(2.0) * torch.erfinv(u)
 
 
+def _count_plain(z: torch.Tensor) -> None:
+    """Count the rows the torch code draws on the card
+    (``profiling.MC_PLAIN_ROWS``)."""
+    if z.is_cuda:
+        profiling.MC_PLAIN_ROWS += z.numel() // z.shape[-1]
+
+
 def _burn_in(g: float) -> int:
     """tau = ceil(−2/log|g|): twice the decorrelation time (0 for g = 0)."""
     return 0 if g == 0.0 else int(np.ceil(-2 / np.log(np.abs(g))))
@@ -231,13 +254,19 @@ def rednoise_members(base_key, member_idx, shape_n: int, g, a: float = 1.0,
     ``fold_in(base_key, member_idx[i])``: it depends only on the member's
     global ensemble index, never on how the ensemble is chunked.  Normals
     are drawn in f64 and cast to ``dtype``, so the integer words, and the
-    f64 draws, are the same on the CPU and the card.
+    f64 draws, are the same on the CPU and the card.  On the card the chunk
+    is one ``mc_rednoise`` launch, bit for bit this torch code; it draws f32
+    and f64 rows of |g| < 1 and raises for any other.
 
     Returns ``(len(member_idx), shape_n)`` on the key's device.
     """
     g = float(g)
     tau = _burn_in(g)
+    if _on_card(base_key):
+        return mc_noise.rednoise(base_key, member_idx, shape_n, tau, g, a=a,
+                                 dtype=dtype)
     z = a * _normal_f64(fold_in(base_key, member_idx), shape_n + tau).to(dtype)
+    _count_plain(z)
     if g == 0.0:
         return z
     return _ar1_recurrence(z, g)[:, tau:]
@@ -251,10 +280,15 @@ def rednoise_members_pairs(base_key, pair_slots, member_idx, shape_n: int,
     fixed by (seed, global pair slot, global member index) however the
     members are chunked or the pairs blocked.  ``g`` is a ``(P,)`` tensor;
     the caller sizes the burn-in ``tau`` for the largest |g| (a longer
-    burn-in only discards more samples).
+    burn-in only discards more samples).  On the card the chunk is one
+    ``mc_rednoise`` launch, bit for bit this torch code; it draws f32 and f64
+    rows and raises for any other.
 
     Returns ``(P, len(member_idx), shape_n)``.
     """
+    if _on_card(base_key):
+        return mc_noise.rednoise(base_key, member_idx, shape_n, tau, g,
+                                 dtype=dtype, slots=pair_slots)
     dev = base_key[0].device
     slots = torch.as_tensor(pair_slots, dtype=torch.int64, device=dev)
     idx = torch.as_tensor(member_idx, dtype=torch.int64, device=dev)
@@ -262,6 +296,7 @@ def rednoise_members_pairs(base_key, pair_slots, member_idx, shape_n: int,
     keys = _threefry2x32(p0[:, None], p1[:, None], torch.zeros_like(idx),
                          idx & _MASK32)                           # (P, M) keys
     z = _normal_f64(keys, shape_n + tau).to(dtype)
+    _count_plain(z)
     g = torch.as_tensor(g, dtype=dtype, device=dev)
     return _ar1_recurrence(z, g[:, None, None])[..., tau:]
 

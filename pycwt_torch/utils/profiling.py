@@ -36,8 +36,10 @@ Beside the recorder, :data:`HOST_BYTES` counts the bytes that
 of its fetches that went through page-locked memory, and
 :data:`MATRIX_PAIRS` and :data:`MATRIX_PAIR_BLOCKS` the pairs whose maps
 ``coherence._wct_matrix_blocks`` computed and the blocks it ran them in,
-whether the recorder is on or off; :func:`enable_spans` sets all four back
-to 0.
+and :data:`MC_KERNEL_ROWS` and :data:`MC_PLAIN_ROWS` the Monte-Carlo
+surrogate rows drawn on the card by the generator kernel
+(``ops/mc_noise.py``) and by the torch path, whether the recorder is on or
+off; :func:`enable_spans` sets all six back to 0.
 """
 from __future__ import annotations
 
@@ -80,15 +82,21 @@ HOST_PINNED_FETCHES = 0
 #: and the blocks of pairs it ran, counted alike
 MATRIX_PAIRS = 0
 MATRIX_PAIR_BLOCKS = 0
+#: Monte-Carlo surrogate rows drawn on the card by ``mc_rednoise``, and by
+#: the torch path of ``stats.rednoise_members*``, counted alike
+MC_KERNEL_ROWS = 0
+MC_PLAIN_ROWS = 0
 
 
 def enable_spans() -> None:
     """Switch the span recorder on and clear its aggregates and the
     counters; a call while it is on does nothing."""
     global _on, HOST_BYTES, HOST_PINNED_FETCHES, MATRIX_PAIRS, MATRIX_PAIR_BLOCKS
+    global MC_KERNEL_ROWS, MC_PLAIN_ROWS
     if _on:
         return
     HOST_BYTES = HOST_PINNED_FETCHES = MATRIX_PAIRS = MATRIX_PAIR_BLOCKS = 0
+    MC_KERNEL_ROWS = MC_PLAIN_ROWS = 0
     _stack.clear()
     _totals.clear()
     _profiled.clear()

@@ -1,10 +1,11 @@
 """The Monte-Carlo significance and the f64 routing on the card: the
-generator's words on CPU and CUDA, curves and histograms bit-identical
-across ``mc_batch`` and ``pair_block`` on both kernel routes, the f64 curve
-equal to the CPU's, and the NINO3 golden at 1e-10 with an f64 config and the
-default engine.  They need an NVIDIA card, so they skip where there is none;
-``python -m pytest --noconftest tests/test_torch_mc_cuda.py`` on the card
-runs them."""
+generator's words on CPU and CUDA, the generator kernels (``mc_fold_in``,
+``mc_rednoise``) against the torch code on the card bit for bit, curves and
+histograms bit-identical across ``mc_batch`` and ``pair_block`` on both
+kernel routes, the f64 curve equal to the CPU's, and the NINO3 golden at
+1e-10 with an f64 config and the default engine.  They need an NVIDIA card,
+so they skip where there is none; ``python -m pytest --noconftest
+tests/test_torch_mc_cuda.py`` on the card runs them."""
 import os
 
 import numpy as np
@@ -16,6 +17,8 @@ from pycwt_torch import coherence as tco
 from pycwt_torch import stats as tst
 from pycwt_torch.config import CWTConfig
 from pycwt_torch.ops import fused_cwt as fc
+from pycwt_torch.ops import mc_noise
+from pycwt_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -53,6 +56,149 @@ def test_generator_words_equal_on_cpu_and_cuda(cuda):
     assert float((z[0] - z[1].cpu()).abs().max()) < 1e-13
     key = tst.PRNGKey(7, device=cuda)
     assert key[0].device.type == "cuda"
+
+
+@pytest.fixture
+def torch_path(monkeypatch):
+    """Call ``torch_path(fn)`` to run ``fn()`` with the card's keys on the
+    generator's torch code instead of the kernels."""
+    def run(fn):
+        with monkeypatch.context() as m:
+            m.setattr(tst, "_on_card", lambda key: False)
+            return fn()
+    return run
+
+
+def _same(got, want):
+    """Bit for bit, and the same view (shape, strides) of its rows."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.stride() == want.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1, 2 ** 40 + 3])
+def test_split_and_fold_in_kernel_equal_the_torch_path(cuda, torch_path, seed):
+    key = tst.PRNGKey(seed, device=cuda)
+    data = torch.tensor([[0, 1, 2, 299], [2 ** 31 - 8, 2 ** 31 - 7, 2 ** 31 - 6, 2 ** 31 - 5]],
+                        device=cuda)
+    before = dict(mc_noise.LAUNCHES)
+    got = [tst.split(key), tst.split(key, 5), tst.fold_in(key, data), tst.fold_in(key, 3)]
+    assert mc_noise.LAUNCHES["mc_fold_in"] - before["mc_fold_in"] == 4
+    want = torch_path(lambda: [tst.split(key), tst.split(key, 5), tst.fold_in(key, data),
+                               tst.fold_in(key, 3)])
+    for g_keys, w_keys in zip(got[:2], want[:2]):
+        assert len(g_keys) == len(w_keys)
+        for gk, wk in zip(g_keys, w_keys):
+            for a, b in zip(gk, wk):
+                _same(a, b)
+    for g_words, w_words in zip(got[2:], want[2:]):
+        for a, b in zip(g_words, w_words):
+            _same(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("g", [0.0, 0.5, -0.3, 0.8, 0.99])
+@pytest.mark.parametrize("n", [50, 885, 6302])
+def test_rednoise_members_kernel_equals_the_torch_path(cuda, torch_path, dtype, g, n):
+    """A chunk of surrogate rows through ``mc_rednoise`` and through the torch
+    code, member indices from 0 and across 2^31, a ≠ 1, up to the long
+    nulls' 6,302 samples."""
+    key = tst.split(tst.PRNGKey(2 ** 31 + 977, device=cuda))[1]
+    for start in (0, 2 ** 31 - 12):
+        idx = start + torch.arange(24, device=cuda)
+        rows = profiling.MC_KERNEL_ROWS, profiling.MC_PLAIN_ROWS
+        got = tst.rednoise_members(key, idx, n, g, 1.7, dtype=dtype)
+        assert (profiling.MC_KERNEL_ROWS - rows[0], profiling.MC_PLAIN_ROWS) == (24, rows[1])
+        want = torch_path(lambda: tst.rednoise_members(key, idx, n, g, 1.7, dtype=dtype))
+        assert profiling.MC_PLAIN_ROWS - rows[1] == 24
+        _same(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("length", [1023, 1024, 1025, 885 + 9, 6302 + 199])
+def test_rows_around_powers_of_two_equal_the_torch_path(cuda, torch_path, dtype, length):
+    """Rows of n + tau values around a power of two (the scan's last step)
+    and at the cell's and the long nulls' lengths."""
+    key = tst.PRNGKey(11, device=cuda)
+    idx = torch.arange(40, device=cuda)
+    g = 0.8 if length != 6302 + 199 else 0.99
+    tau = tst._burn_in(g)
+    want = torch_path(lambda: tst.rednoise_members(key, idx, length - tau, g, dtype=dtype))
+    _same(tst.rednoise_members(key, idx, length - tau, g, dtype=dtype), want)
+
+
+def test_the_card_refuses_rows_the_kernel_does_not_draw(cuda):
+    """On the card there is no other road: half-precision rows and |g| ≥ 1
+    raise before any launch."""
+    key = tst.PRNGKey(3, device=cuda)
+    before = dict(mc_noise.LAUNCHES)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tst.rednoise_members(key, torch.arange(4, device=cuda), 30, 0.5, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\|g\| < 1"):
+        tst.rednoise_members(key, torch.arange(4, device=cuda), 30, 2.0)
+    assert mc_noise.LAUNCHES == before
+
+
+def test_a_key_on_another_card_than_the_current(torch_path):
+    """Keys and rows on cuda:1 while cuda:0 is current: each launch runs on
+    the key's card, and equals the torch code there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    key = tst.PRNGKey(2 ** 31 + 5, device=other)
+    idx = torch.arange(300, device=other)
+    got = [*tst.split(key)[1], tst.rednoise_members(key, idx, 885, 0.72)]
+    want = torch_path(lambda: [*tst.split(key)[1],
+                               tst.rednoise_members(key, idx, 885, 0.72)])
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(got, want):
+        assert a.device == other
+        _same(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("tau", [9, 199])
+def test_rednoise_members_pairs_kernel_equals_the_torch_path(cuda, torch_path, dtype, tau):
+    key = tst.PRNGKey(5, device=cuda)
+    slots = torch.tensor([0, 5, 2 ** 31 - 1], device=cuda)
+    g = torch.tensor([0.0, -0.45, 0.97], dtype=torch.float64, device=cuda)
+    idx = 290 + torch.arange(17, device=cuda)
+    got = tst.rednoise_members_pairs(key, slots, idx, 885, g, tau, dtype=dtype)
+    want = torch_path(lambda: tst.rednoise_members_pairs(key, slots, idx, 885, g, tau,
+                                                         dtype=dtype))
+    _same(got, want)
+
+
+def test_the_cells_chunk_equals_the_torch_path(cuda, torch_path):
+    """One 300-member chunk at the ``wct_mc300`` shape (S 76, n 885, nfft
+    1024, the cell's g range): the histogram and the curve through the
+    kernels equal the torch path's, three generator launches a chunk, no
+    row drawn by the torch code, and no host sync in the chunk."""
+    n, sj, oc, _, _ = tco._surrogate_grid(JAO["dt"], JAO["dj"], JAO["s0"], JAO["J"],
+                                          pt.Morlet(6))
+    scales = torch.tensor(sj, dtype=torch.float32, device=cuda)
+    oc = torch.tensor(oc, device=cuda)
+    key = tst.PRNGKey(2 ** 31 + 4099, device=cuda)
+    kw = dict(mother=pt.Morlet(6), nfft=1024, dj=JAO["dj"], n=n, al1=0.72, al2=0.41)
+    # the torch path first: it also builds the chunk's cached operators
+    want = torch_path(lambda: tco._mc_histogram_run(key, 0, scales, oc, JAO["dt"],
+                                                    batch=300, nchunks=1, **kw))
+    before, plain = dict(mc_noise.LAUNCHES), profiling.MC_PLAIN_ROWS
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tco._mc_histogram_run(key, 0, scales, oc, JAO["dt"], batch=300, nchunks=1, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert {k: mc_noise.LAUNCHES[k] - before[k] for k in before} == {
+        "mc_fold_in": 1, "mc_rednoise": 2}
+    assert profiling.MC_PLAIN_ROWS == plain
+    assert torch.equal(got, want)
+    sig = dict(mc_count=300, seed=2 ** 31 + 4099, cache=False, progress=False, **JAO)
+    curve = tco.wct_significance(0.72, 0.41, **sig)
+    np.testing.assert_array_equal(curve, torch_path(
+        lambda: tco.wct_significance(0.72, 0.41, **sig)))
 
 
 def test_mc_bit_identical_across_mc_batch(cuda, route):
