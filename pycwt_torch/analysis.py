@@ -33,6 +33,7 @@ from .mothers import Mother, as_mother
 from .ops.fft import _planar_route
 from .stats import ar1, ar1_batch
 from .utils.helpers import boxpdf
+from .utils.profiling import span
 
 __all__ = ["CWTAnalysis", "cwt_analysis", "global_spectrum", "xwt_analysis",
            "wct_analysis", "wct_matrix_analysis", "phase_arrows"]
@@ -245,6 +246,7 @@ def wct_analysis(y1, y2, dt, dj=1 / 12, s0=-1, J=-1,
                 sig95=sig95)
 
 
+@span("wct_matrix_analysis")
 def wct_matrix_analysis(y, dt, dj=1 / 12, s0=-1, J=-1, mother="morlet",
                         significance_level=0.8646, sig: bool = True,
                         pairs=None, mc_count=300, seed=0, cache=True,
@@ -258,12 +260,23 @@ def wct_matrix_analysis(y, dt, dj=1 / 12, s0=-1, J=-1, mother="morlet",
     AR(1) coefficients are fitted per signal (:func:`ar1_batch`), with the
     white-noise fallback where a fit is degenerate and non-stationary fits
     clipped to ±0.99; the nulls are deduplicated to distinct rounded
-    coefficient pairs and cached as ``wct_significance_batch`` does.
+    coefficient pairs and cached as ``wct_significance_batch`` does.  With
+    ``cache=True`` every pair whose α > 0.25 shares one cache entry, and so
+    one curve, as in pycwt (the entry's name folds α through
+    round(arctanh(4α)), NaN there); ``cache=False`` gives each pair the
+    null of its own coefficients.
 
     Returns a dict with ``WCT``/``phase`` ``(P, S, n0)`` (tensors on
     ``device`` when ``as_numpy=False``), ``pairs`` ``(P, 2)``, ``sig95``
     ``(P, S)`` (or 0 when ``sig=False``), ``alpha`` ``(B,)``, ``coi``,
     ``freq``, ``period``.
+
+    **Tracing** (``utils.profiling``): the span ``wct_matrix_analysis``
+    holds the call; inside it ``wct_matrix`` and ``mc.batch``
+    (``wct_significance_batch``, with its ``fetch`` and ``mc.readout``), so
+    its self time is the AR(1) fits and the glue.  The counters
+    ``profiling.MC_NULLS``, ``MC_NULL_MEMBERS`` and ``MC_NULL_CHUNKS`` add
+    the distinct nulls, member pairs and chunks of the significance.
     """
     from .coherence import wct_matrix, wct_significance_batch
 

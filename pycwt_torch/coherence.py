@@ -1001,6 +1001,7 @@ def _mc_histogram_run_pairs(key, scales, outsidecoi, slots, g1, g2,
     return acc
 
 
+@span("mc.batch")
 def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
                            wavelet="morlet", mc_count=300, progress=True,
                            cache=True, seed=0, mc_batch=None,
@@ -1026,7 +1027,10 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
     * **Incremental cache** (``cache=True``): each pair's curve is read from
       and written to the single-pair surface's cache entry; only the
       missing nulls are computed, and each entry name is written once per
-      call (pairs with α > 0.25 share one name, as in the reference).
+      call.  The name folds α through round(arctanh(4α)), which is NaN for
+      every α > 0.25, as in the reference: all such pairs share one entry,
+      and so a warm call hands them all one curve.  Per-pair nulls at
+      those coefficients need ``cache=False``.
     * **Multi-device** (``mesh``, a ``pycwt_torch.parallel.make_mesh``
       mesh): the distinct nulls of each block spread over the ranks of
       ``mesh_axis`` (:func:`pycwt_torch.parallel.sharded_mc_histogram_pairs`,
@@ -1038,6 +1042,17 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
       deduplication, so every rank computes the same nulls, and only it
       writes.  (``pycwt_tpu`` reads on every process, which lets ranks with
       different cache contents disagree.)  Every rank calls this together.
+
+    **Tracing** (``utils.profiling``): the span ``mc.batch`` holds the
+    call, ``fetch`` the copy of the counts to the host (with the wait for
+    the card's queue), and ``mc.readout`` the readout of each distinct null
+    and its fan-out to the pairs; the chunks' ``mc.generate``, ``wct.core``
+    and ``mc.histogram`` nest inside.  The counters
+    ``profiling.MC_NULLS``, ``MC_NULL_MEMBERS`` and ``MC_NULL_CHUNKS`` add
+    the distinct nulls simulated, the member pairs drawn for them (a
+    block's padding and the last chunk's overdraw included) and the chunks
+    run.  They count the whole call: under a mesh every rank adds the same
+    totals, not the share that it drew itself.
     """
     from .api import _resolve_device
     from .parallel.distributed import (host_broadcast_array, is_coordinator,
@@ -1155,8 +1170,11 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
     key = PRNGKey(seed, device=device)
     sj_t = torch.as_tensor(sj, dtype=dtype, device=device)
     oc_t = torch.as_tensor(outsidecoi, device=device)
+    profiling.MC_NULLS += Pd
     blocks = []
     for b0 in range(0, Pd + npad, Pblk):
+        profiling.MC_NULL_MEMBERS += Pblk * mc_batch * nchunks
+        profiling.MC_NULL_CHUNKS += nchunks
         blk = slice(b0, b0 + Pblk)
         if D > 1:
             from .parallel._collectives import gather
@@ -1178,17 +1196,19 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
         if progress and len(blocks) > 1:
             print(f"  null blocks: {min(len(blocks) * Pblk, Pd)}/{Pd}",
                   end="\r")
-    wlc = torch.cat(blocks).cpu().numpy().astype(np.float64)[:Pd]
+    with span("fetch"):
+        wlc = torch.cat(blocks).cpu().numpy().astype(np.float64)[:Pd]
     if progress:
         print(f"  MC surrogates per distinct null: {mc_count}")
 
-    sig_d = np.empty((Pd, J + 1))
-    for d in range(Pd):
-        sig_d[d] = mc_significance_from_histogram(
-            wlc[d], maxscale, significance_level, outsidecoi_any)
-    for p in range(P):
-        if not have[p]:
-            sig[p] = sig_d[owner[p]]
+    with span("mc.readout"):
+        sig_d = np.empty((Pd, J + 1))
+        for d in range(Pd):
+            sig_d[d] = mc_significance_from_histogram(
+                wlc[d], maxscale, significance_level, outsidecoi_any)
+        for p in range(P):
+            if not have[p]:
+                sig[p] = sig_d[owner[p]]
 
     if cache and is_coordinator():
         # One write per entry name: pairs whose names fold together (every

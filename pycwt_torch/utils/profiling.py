@@ -11,14 +11,16 @@ layer boundaries (:class:`span`), off by default and switched by
 each name's count, total and self nanoseconds.
 
 * ``wct``: ``coherence.wct``, the whole call (API);
-* ``fetch``: ``api._host`` and the Monte-Carlo readout in
-  ``coherence.wct_significance``, the wait for the device's queue and the
-  copy (API, host fetch);
+* ``fetch``: ``api._host`` and the Monte-Carlo counts' copy in
+  ``coherence.wct_significance`` and ``wct_significance_batch``, the wait
+  for the device's queue and the copy (API, host fetch);
 * ``wct.core``: ``coherence._wct_core``, both routes (WCT core);
 * ``spectrum``: ``ops.fft._spectrum_f64`` (forward DFT);
 * ``fused_cwt``: ``ops.fused_cwt.fused_cwt_planar`` (kernel wrappers);
 * ``smooth``: ``ops.smoothing.smooth`` (smoothing);
-* ``mc``: ``coherence.wct_significance``; ``mc.generate``:
+* ``mc``: ``coherence.wct_significance``; ``mc.batch``:
+  ``coherence.wct_significance_batch``, and ``mc.readout``: its readout of
+  each distinct null and the fan-out to the pairs; ``mc.generate``:
   ``stats.rednoise_members`` and ``rednoise_members_pairs``;
   ``mc.histogram``: ``coherence._histogram`` (MC significance);
 * ``cwt_batch``: ``transform.cwt_batch`` (API, long records);
@@ -26,7 +28,9 @@ each name's count, total and self nanoseconds.
 * ``wct_matrix``: ``coherence.wct_matrix``, the whole call (API);
   ``wct_matrix.fields``: the signals' shared transforms and
   self-smoothings in ``coherence._wct_matrix_blocks``, and
-  ``wct_matrix.pairs``: its loop over the blocks of pairs (WCT pairs).
+  ``wct_matrix.pairs``: its loop over the blocks of pairs (WCT pairs);
+* ``wct_matrix_analysis``: ``analysis.wct_matrix_analysis``, the whole
+  call (API).
 
 No span synchronizes the device: a span's time is the host's, and a
 ``fetch`` holds the wait for the device's queue.
@@ -36,10 +40,13 @@ Beside the recorder, :data:`HOST_BYTES` counts the bytes that
 of its fetches that went through page-locked memory, and
 :data:`MATRIX_PAIRS` and :data:`MATRIX_PAIR_BLOCKS` the pairs whose maps
 ``coherence._wct_matrix_blocks`` computed and the blocks it ran them in,
-and :data:`MC_KERNEL_ROWS` and :data:`MC_PLAIN_ROWS` the Monte-Carlo
+:data:`MC_KERNEL_ROWS` and :data:`MC_PLAIN_ROWS` the Monte-Carlo
 surrogate rows drawn on the card by the generator kernel
-(``ops/mc_noise.py``) and by the torch path, whether the recorder is on or
-off; :func:`enable_spans` sets all six back to 0.
+(``ops/mc_noise.py``) and by the torch path, and :data:`MC_NULLS`,
+:data:`MC_NULL_MEMBERS` and :data:`MC_NULL_CHUNKS` the distinct nulls that
+``coherence.wct_significance_batch`` simulated, the member pairs it drew
+for them and the chunks it ran, whether the recorder is on or off;
+:func:`enable_spans` sets all nine back to 0.
 """
 from __future__ import annotations
 
@@ -86,17 +93,25 @@ MATRIX_PAIR_BLOCKS = 0
 #: the torch path of ``stats.rednoise_members*``, counted alike
 MC_KERNEL_ROWS = 0
 MC_PLAIN_ROWS = 0
+#: distinct nulls ``coherence.wct_significance_batch`` simulated, the member
+#: pairs it drew for them (the last chunk's overdraw and a block's padding
+#: included) and the chunks it ran, counted alike; each counts the whole
+#: call, so under a mesh every rank adds the mesh's totals
+MC_NULLS = 0
+MC_NULL_MEMBERS = 0
+MC_NULL_CHUNKS = 0
 
 
 def enable_spans() -> None:
     """Switch the span recorder on and clear its aggregates and the
     counters; a call while it is on does nothing."""
     global _on, HOST_BYTES, HOST_PINNED_FETCHES, MATRIX_PAIRS, MATRIX_PAIR_BLOCKS
-    global MC_KERNEL_ROWS, MC_PLAIN_ROWS
+    global MC_KERNEL_ROWS, MC_PLAIN_ROWS, MC_NULLS, MC_NULL_MEMBERS, MC_NULL_CHUNKS
     if _on:
         return
     HOST_BYTES = HOST_PINNED_FETCHES = MATRIX_PAIRS = MATRIX_PAIR_BLOCKS = 0
     MC_KERNEL_ROWS = MC_PLAIN_ROWS = 0
+    MC_NULLS = MC_NULL_MEMBERS = MC_NULL_CHUNKS = 0
     _stack.clear()
     _totals.clear()
     _profiled.clear()
