@@ -94,7 +94,10 @@ trees' ``highest`` and ``high`` outputs bit for bit (``_tier_digests``);
 ``--stage-b-complex`` builds, runs ``phase_stage_b_complex`` and holds the
 f32 kernels' registers and spills against ``PTXAS_BEFORE``, alone;
 ``--mc-generator`` builds and runs ``phase_mc_generator`` (the MC
-generator's kernels against its torch code on the card, timed), alone.
+generator's kernels against its torch code on the card, timed), alone;
+``--mc-histogram`` builds and runs ``phase_mc_histogram`` (the MC counts
+kernel against the torch tail at both MC cells' chunk shapes, timed),
+alone.
 Any failure raises: the exit code is then non-zero and no ``ok`` line is
 printed.  Without a CUDA device it exits non-zero at once.
 """
@@ -129,6 +132,7 @@ OUTPUTS = ("planes", "power", "power_sum")
 KERNEL_SOURCE = "pycwt_torch/csrc/fused_cwt.cu"
 DIRECT_SOURCE = "pycwt_torch/csrc/direct_cwt.cu"
 MC_SOURCE = "pycwt_torch/csrc/mc_noise.cu"
+MC_HIST_SOURCE = "pycwt_torch/csrc/mc_hist.cu"
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
 #: f32 bounds of the slice's path against the f64 goldens (rel_err):
 #: tests/test_tpu_chip.py:43, tests/test_engines.py:170, :156
@@ -1413,9 +1417,10 @@ def phase_mc_significance():
     from pycwt_torch.analysis import wct_analysis
     from pycwt_torch.config import CWTConfig
     from pycwt_torch.ops import fused_cwt as fc
-    from pycwt_torch.ops import mc_noise
+    from pycwt_torch.ops import mc_hist, mc_noise
     from pycwt_torch.ops.mxu_dft import fft_of_real_planar
     from pycwt_torch.sample import load
+    from pycwt_torch.utils import profiling
 
     cache_dir = tempfile.mkdtemp(prefix="pycwt_mc_cache_")
     old_cache = os.environ.get("PYCWT_TPU_CACHE_DIR")
@@ -1435,14 +1440,22 @@ def phase_mc_significance():
                 _reset_counts()
                 for k in mc_noise.LAUNCHES:
                     mc_noise.LAUNCHES[k] = 0
+                mc_hist.LAUNCHES["mc_coherence_counts"] = 0
+                profiling.MC_HIST_KERNEL_CELLS = profiling.MC_HIST_PLAIN_CELLS = 0
                 sig95 = tco.wct_significance(al1, al2, **mc)
                 torch.cuda.synchronize()
                 r["launches"] = dict(fc.KERNEL_LAUNCHES)
                 r["mc_launches"] = dict(mc_noise.LAUNCHES)
-                chunks = -(-MC_COUNT // auto)
+                r["hist_launches"] = mc_hist.LAUNCHES["mc_coherence_counts"]
+                r["hist_cells"] = (profiling.MC_HIST_KERNEL_CELLS, profiling.MC_HIST_PLAIN_CELLS)
+                chunks = r["chunks"] = -(-MC_COUNT // auto)
                 check(r["mc_launches"] == {"mc_fold_in": chunks, "mc_rednoise": 2 * chunks},
                       f"MC {name}: generator launches {r['mc_launches']} for {chunks} "
                       "chunks, not one mc_fold_in and two mc_rednoise a chunk")
+                check(r["hist_launches"] == chunks
+                      and r["hist_cells"] == (MC_COUNT * S * n, 0),
+                      f"MC {name}: {r['hist_launches']} mc_coherence_counts launches for "
+                      f"{chunks} chunks, points (kernel, torch tail) {r['hist_cells']}")
                 r["bands"] = _mc_bands(sig95, ref, f"MC {name}")
                 want = (("cwt_direct",) if small else ("cwt_stage_a", "cwt_stage_b"))
                 check(all(r["launches"][k] > 0 for k in want)
@@ -1502,7 +1515,9 @@ def phase_mc_significance():
                 r["peak_per_member"] = (torch.cuda.max_memory_allocated() - base) / auto
                 r["sig95"] = sig95
             log(f"MC {name}: auto mc_batch {auto}, peak {r['peak_per_member']:.4e} bytes a member, "
-                f"launches {r['launches']}, generator launches {r['mc_launches']}, bands max {r['bands'][0]:.4f} mean "
+                f"launches {r['launches']}, generator launches {r['mc_launches']}, "
+                f"mc_coherence_counts launches {r['hist_launches']} for {r['chunks']} chunks, "
+                f"points binned (kernel, torch tail) {r['hist_cells']}, bands max {r['bands'][0]:.4f} mean "
                 f"{r['bands'][1]:.4f}, chunk transform vs plain {r['chunk_err']:.3e} of "
                 f"max|W|; R2 rows, curves and histograms at mc_batch {auto}/64/7 "
                 f"bit-identical; no host sync in a run of chunks")
@@ -1543,15 +1558,29 @@ def phase_mc_significance():
                              for k, r in out["routes"].items()}
         check(all(v < MC_BANDS["mean"] for v in out["vs_cpu_f64"].values()),
               f"MC: card f32 vs CPU f64 on the same members {out['vs_cpu_f64']}")
-        # the batched surface: 8 distinct nulls, two pair blocks
+        # the batched surface: 8 distinct nulls, two pair blocks (3 pads the last
+        # block with a repeat of its last null, so 9 rows are binned)
         a1 = [0.0, 0.1, 0.2, 0.3, 0.45, 0.6, 0.75, 0.9]
         a2 = [0.05, 0.5, 0.0, 0.35, 0.2, 0.1, 0.6, 0.3]
         bkw = dict(alpha_quant=0, **mc)
         _reset_counts()
+        mc_hist.LAUNCHES["mc_coherence_counts"] = 0
+        profiling.MC_NULL_CHUNKS = 0
+        profiling.MC_HIST_KERNEL_CELLS = profiling.MC_HIST_PLAIN_CELLS = 0
         curves = [tco.wct_significance_batch(a1, a2, pair_block=pb, **bkw) for pb in (8, 3)]
         torch.cuda.synchronize()
         blaunch = dict(fc.KERNEL_LAUNCHES)
         check(_four_step_only(blaunch), f"wct_significance_batch launches {blaunch}")
+        out["batch_hist"] = dict(launches=mc_hist.LAUNCHES["mc_coherence_counts"],
+                                 chunks=profiling.MC_NULL_CHUNKS,
+                                 cells=(profiling.MC_HIST_KERNEL_CELLS,
+                                        profiling.MC_HIST_PLAIN_CELLS))
+        bh = out["batch_hist"]
+        check(bh["chunks"] > 0 and bh["launches"] == bh["chunks"]
+              and bh["cells"] == (sum(-(-len(a1) // pb) * pb for pb in (8, 3))
+                                  * MC_COUNT * S * n, 0),
+              f"wct_significance_batch: {bh['launches']} mc_coherence_counts launches for "
+              f"{bh['chunks']} chunks, points (kernel, torch tail) {bh['cells']}")
         check(curves[0].shape == (8, kw["J"] + 1)
               and np.array_equal(np.nan_to_num(curves[0], nan=-1.0),
                                  np.nan_to_num(curves[1], nan=-1.0)),
@@ -1584,7 +1613,8 @@ def phase_mc_significance():
         f"{out['routes']['cwt_direct']['peak_per_member']:.4e} (cwt_direct) vs the model's "
         f"{out['model_per_member']:.4e}; card f32 vs CPU f64 on the same members, max "
         f"|dsig95| {out['vs_cpu_f64']}; wct_significance_batch 8 nulls x 300 members "
-        f"{out['batch_ms']:.4f} ms, pair_block 8 and 3 bit-identical, launches {blaunch}; "
+        f"{out['batch_ms']:.4f} ms, pair_block 8 and 3 bit-identical, launches {blaunch}, "
+        f"mc_coherence_counts {out['batch_hist']}; "
         f"wct_analysis(sig=True) bands max {out['analysis_bands'][0]:.4f} mean "
         f"{out['analysis_bands'][1]:.4f}, launches {alaunch}")
     return out
@@ -1686,6 +1716,102 @@ def phase_mc_generator(card, calls=20):
         f"launches {out['kernel']['launches']} / {out['torch']['launches']} (kernel "
         f"counter), bound {out['bound_ms']:.5f} ms by bytes ({nbytes} bytes, "
         f"{100 * out['bound_share']:.2f} % of it); rows bit for bit")
+    return out
+
+
+def _mc_chunk_fields(shape):
+    """The smoothed fields ``(S, C)`` of one real Monte-Carlo chunk on the
+    card, ``(P, B, S, n)`` complex64, and its outside-COI mask: ``wct_mc300``'s
+    chunk (P 1, the golden's α pair, 300 members of 885 samples, S 76) or
+    ``wct_matrix_mc_32st``'s (P nulls of B members, 6302 samples, S 110,
+    coefficients in [0.4, 0.8])."""
+    import pycwt_torch as pt
+    from pycwt_torch import coherence as tco
+    from pycwt_torch import stats as tst
+
+    P, B = shape
+    _, al1, al2, kw = _mc_args()
+    J = kw["J"] if P == 1 else 109
+    n, sj, oc, _, _ = tco._surrogate_grid(kw["dt"], kw["dj"], kw["s0"], J, pt.Morlet(6))
+    nfft = 1 << (n - 1).bit_length()
+    sj = torch.tensor(sj, dtype=torch.float32, device="cuda")
+    k1, k2 = tst.split(tst.PRNGKey(MC_SEED, device="cuda"))
+    idx = torch.arange(B, device="cuda")
+    g1 = torch.linspace(0.4, 0.8, P, device="cuda") if P > 1 else al1
+    g2 = torch.linspace(0.75, 0.45, P, device="cuda") if P > 1 else al2
+    if P > 1:
+        slots = torch.arange(P, device="cuda")
+        y1 = tst.rednoise_members_pairs(k1, slots, idx, n, g1, 64).reshape(P * B, n)
+        y2 = tst.rednoise_members_pairs(k2, slots, idx, n, g2, 64).reshape(P * B, n)
+    else:
+        y1 = tst.rednoise_members(k1, idx, n, g1, 1.0)
+        y2 = tst.rednoise_members(k2, idx, n, g2, 1.0)
+    w1, w2, sj = tco._planar_ws(y1, y2, sj, kw["dt"], mother=pt.Morlet(6), nfft=nfft)
+    Sm, Cm, _ = tco._planar_fields(w1, w2, sj, dt=kw["dt"], dj=kw["dj"], mother=pt.Morlet(6))
+    S = sj.shape[0]
+    return Sm.view(P, B, S, n), Cm.view(P, B, S, n), torch.tensor(oc, device="cuda")
+
+
+#: the chunks of the two Monte-Carlo cells, (P, B): wct_mc300's 300
+#: members of one null, and wct_matrix_mc_32st's ~405 member pairs (45
+#: nulls of 9 members)
+MC_HIST_SHAPES = {"wct_mc300": (1, 300), "wct_matrix_mc_32st": (45, 9)}
+
+
+def phase_mc_histogram(card, calls=10):
+    """The Monte-Carlo chunk's tail at both cells' chunk shapes, on the
+    smoothed fields of a real chunk: ``mc_coherence_counts`` against the
+    torch tail it replaces (the ratio's five element-wise ops,
+    ``_histogram``'s passes and ``scatter_add_``, and the accumulator's add),
+    in turns (kernel, torch, torch, kernel); the counts bit for bit; device ms a call (torch.profiler over ``calls``
+    calls), launches a call, and the kernel's bound by bytes: 16 a point
+    outside the COI of the fields, the mask, and the counts read and
+    written, at 3.35 TB/s."""
+    from pycwt_torch import coherence as tco
+    from pycwt_torch.ops import mc_hist
+
+    out = {"card": card, "shapes": {}}
+    for cell, shape in MC_HIST_SHAPES.items():
+        Sm, Cm, oc = _mc_chunk_fields(shape)
+        P, B, S, n = Sm.shape
+        acc = torch.zeros((P, S, tco.NBINS), dtype=torch.int64, device="cuda")
+        roads = {
+            "kernel": lambda: mc_hist.coherence_counts(Sm, Cm, oc, B, acc),
+            "torch": lambda: acc.add_(tco._histogram(tco._coherence_ratio(Sm, Cm), oc)),
+        }
+        counts = {}
+        for road, fn in roads.items():
+            acc.zero_()
+            fn()
+            counts[road] = acc.clone()
+        err = int((counts["kernel"] - counts["torch"]).abs().max())
+        check(err == 0,
+              f"MC counts at {cell}'s chunk: the kernel's counts differ from the torch path's "
+              f"by up to {err}")
+        outside = int(oc.sum())
+        nbytes = 16 * P * B * outside + S * n + 2 * acc.numel() * 8
+        bound = nbytes / PEAK_BYTES * 1e3
+        r = {"shape": [P, B, S, n], "points_outside_coi": P * B * outside,
+             "bound_ms": bound, "bound_bytes": nbytes, "max_abs_err": err}
+        for road in ("kernel", "torch", "torch", "kernel"):
+            before = mc_hist.LAUNCHES["mc_coherence_counts"]
+            roads[road]()
+            launches = mc_hist.LAUNCHES["mc_coherence_counts"] - before
+            d = r.setdefault(road, {"device_ms": [], "kernel_launches_per_call": launches})
+            d["device_ms"].append(device_ms(roads[road], calls=calls, floor=bound))
+        for road in roads:
+            r[road]["device_ms_median"] = float(np.median(r[road]["device_ms"]))
+            r[road]["bound_share"] = bound / r[road]["device_ms_median"]
+        check(r["kernel"]["kernel_launches_per_call"] == 1
+              and r["torch"]["kernel_launches_per_call"] == 0,
+              f"MC counts at {cell}'s chunk: launches {r}")
+        out["shapes"][cell] = r
+        log(f"MC counts at {cell}'s chunk {P} x {B} x {S} x {n}: device ms a call, in turns, "
+            f"kernel {r['kernel']['device_ms']}, torch tail {r['torch']['device_ms']}; bound "
+            f"{bound:.5f} ms by bytes ({nbytes} bytes, {100 * r['kernel']['bound_share']:.2f} % "
+            f"of it); counts bit for bit")
+        del Sm, Cm, acc, counts
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3248,6 +3374,7 @@ def main():
     phase_direct_gradient()
     mc = phase_mc_significance()
     mc_generator = phase_mc_generator(card)
+    mc_histogram = phase_mc_histogram(card)
     pairs = phase_pairs(card)
     dog = phase_dog_repair(card)
     long = phase_long(card)
@@ -3378,6 +3505,24 @@ def main():
             bound_bytes=gen["bound_bytes"],
             shape=f"2 x {MC_COUNT} members, n {mc_generator['n']}, f32, the golden's al1/al2",
             card=card))
+    for cell, r in mc_histogram["shapes"].items():
+        kernels.append(dict(
+            name=f"mc_coherence_counts ({cell})", route="cuda", source=MC_HIST_SOURCE,
+            replaces="pycwt_tpu/coherence.py:872-892, :1306 (the bins and counts, jnp under jit)",
+            tpu_kernel="none: XLA fuses the ratio, the bins and the counts",
+            launches={route: rr["hist_launches"] for route, rr in mc["routes"].items()},
+            chunks={route: rr["chunks"] for route, rr in mc["routes"].items()},
+            launches_batch=mc["batch_hist"]["launches"], chunks_batch=mc["batch_hist"]["chunks"],
+            launches_by="wct_significance (300 members, each route) and wct_significance_batch "
+                        "(8 nulls at pair_block 8 and 3), counted from 0 around each run",
+            max_abs_err=r["max_abs_err"],
+            tolerance="bit for bit: the largest |kernel - torch tail| of the chunk's counts",
+            ms=r["kernel"]["device_ms_median"],
+            ms_by="torch.profiler device time per call on a real chunk's fields",
+            plain_ms=r["torch"]["device_ms_median"],
+            plain_call="the torch tail: the ratio, _histogram's passes and scatter_add_, acc +=",
+            bound_ms=r["bound_ms"], bound_by="bytes", bound_share=r["kernel"]["bound_share"],
+            bound_bytes=r["bound_bytes"], shape=r["shape"], card=card))
     jax_shape = relayout["shapes"]["2^20x64"]
     variants = [r for sh in relayout["shapes"].values() for r in sh["variants"].values()]
     kernels.append(dict(
@@ -3423,6 +3568,7 @@ def main():
                     "mc_auto_batch": mc["auto_batch"], "mc_generator_ms": mc["generator_ms"],
                     "mc_batch_8_nulls_ms": mc["batch_ms"],
                     "mc_generator": mc_generator,
+                    "mc_histogram": mc_histogram,
                     "mc_vs_cpu_f64_max_abs": mc["vs_cpu_f64"],
                     "wct_matrix_32_stations_ms": {
                         k: r["ms"] for k, r in pairs["routes"].items()},
@@ -3488,6 +3634,10 @@ if __name__ == "__main__":
         card = phase_device()
         phase_build()
         phase_mc_generator(card)
+    elif sys.argv[1:] == ["--mc-histogram"]:
+        card = phase_device()
+        phase_build()
+        phase_mc_histogram(card)
     elif sys.argv[1:] == ["--stage-b-complex"]:
         card = phase_device()
         usage = phase_build()

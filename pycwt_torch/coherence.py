@@ -23,10 +23,13 @@ nfft ≤ 2^12 under ``PYCWT_TPU_SMALL_KERNEL=1``), and
 The Monte-Carlo significance draws its AR(1) surrogates from ``jax.random``'s
 own threefry streams (``stats.rednoise_members*``), so for one seed the port
 and ``pycwt_tpu`` simulate the same members.  Each chunk of members is one
-batched pipeline on the device: surrogates → :func:`_wct_core` → integer
-counts of floor(R²·1000) outside the COI (``scatter_add_``); the chunks
-accumulate on the device and only the (J+1, 1000) histogram comes back to
-the host for the empirical CDF.
+batched pipeline on the device (:func:`_mc_counts`): surrogates → the
+smoothed fields of :func:`_planar_fields` → integer counts of
+floor(R²·1000) outside the COI, by one ``mc_coherence_counts`` launch
+(``ops/mc_hist.py``) on the card, and elsewhere by :func:`_histogram`
+(``scatter_add_``) of the ratio or of :func:`_wct_core`'s coherence; the
+chunks accumulate on the device and only the (J+1, 1000) histogram comes
+back to the host for the empirical CDF.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import torch
 
 from .config import CWTConfig, DEFAULT
 from .mothers import Mother, as_mother
+from .ops import mc_hist
 from .ops.fft import _planar_route, resolve_engine
 from .ops.smoothing import smooth, smooth_planar_pair
 from .stats import (PRNGKey, _burn_in, ar1, ar1_batch, ar1_spectrum,
@@ -149,43 +153,68 @@ def _cross(w1, w2):
     return w1r * w2r + w1i * w2i, w1i * w2r - w1r * w2i
 
 
-def _planar_coherence(w1, w2, scales, *, dt: float, dj: float,
-                      mother: Mother):
-    """The coherence of two planar transforms ``(wr, wi)``, each ``(..., S,
-    n)`` f32 over ``scales`` ``(S,)``: plane-packed smoothing of the
-    scale-normalized auto- and cross spectra (two ``smooth_planar_pair``
-    calls instead of four single-plane ones), then R² and the arctan2 phase.
+def _planar_fields(w1, w2, scales, *, dt: float, dj: float, mother: Mother):
+    """The smoothed fields of the coherence of two planar transforms ``(wr,
+    wi)``, each ``(..., S, n)`` f32 over ``scales`` ``(S,)``: the
+    scale-normalized auto-spectra packed as ``S1 + i·S2`` and the cross
+    spectrum ``W12r + i·W12i``, each smoothed in one complex pass (as
+    ``smooth_planar_pair`` does, whose planes are their real and imaginary
+    views).
 
-    Returns ``(WCT, aWCT, (W12r, W12i))``.
+    Returns ``(S, C, (W12r, W12i))``: ``S = S1 + i·S2`` and ``C = S12r +
+    i·S12i``, complex ``(..., S, n)``.
     """
     (w1r, w1i), (w2r, w2i) = w1, w2
     s_col = scales[:, None]
-    S1, S2 = smooth_planar_pair((w1r ** 2 + w1i ** 2) / s_col,
-                                (w2r ** 2 + w2i ** 2) / s_col,
-                                dt, dj, scales, mother)
+    Sm = smooth(torch.complex((w1r ** 2 + w1i ** 2) / s_col,
+                              (w2r ** 2 + w2i ** 2) / s_col), dt, dj, scales, mother)
     w12r, w12i = _cross(w1, w2)
-    S12r, S12i = smooth_planar_pair(w12r / s_col, w12i / s_col,
-                                    dt, dj, scales, mother)
-    WCT = (S12r ** 2 + S12i ** 2) / (S1 * S2)
-    return WCT, torch.atan2(w12i, w12r), (w12r, w12i)
+    Cm = smooth(torch.complex(w12r / s_col, w12i / s_col), dt, dj, scales, mother)
+    return Sm, Cm, (w12r, w12i)
 
 
-def _wct_core_planar(y1n, y2n, scales, dt, *, mother: Mother, nfft: int,
-                     dj: float):
-    """:func:`_wct_core` on real f32 planes: each row's trimmed planar CWT
-    (:func:`_planar_w`: the spectrum in f64 rounded once to f32 planes, the
-    CUDA kernels on a CUDA tensor, their plain version below 2^8), then
-    :func:`_planar_coherence`.  Needs a pow-2 nfft.
+def _coherence_ratio(Sm, Cm):
+    """R² = (S12r² + S12i²) / (S1·S2) of :func:`_planar_fields`' fields,
+    each op rounded on its own (``mc_coherence_counts`` rounds alike)."""
+    return (Cm.real ** 2 + Cm.imag ** 2) / (Sm.real * Sm.imag)
+
+
+def _planar_coherence(w1, w2, scales, *, dt: float, dj: float,
+                      mother: Mother):
+    """The coherence of two planar transforms ``(wr, wi)``, each ``(..., S,
+    n)`` f32 over ``scales`` ``(S,)``: :func:`_planar_fields`, then R²
+    (:func:`_coherence_ratio`) and the arctan2 phase.
 
     Returns ``(WCT, aWCT, (W12r, W12i))``.
+    """
+    Sm, Cm, (w12r, w12i) = _planar_fields(w1, w2, scales, dt=dt, dj=dj,
+                                          mother=mother)
+    return _coherence_ratio(Sm, Cm), torch.atan2(w12i, w12r), (w12r, w12i)
+
+
+def _planar_ws(y1n, y2n, scales, dt, *, mother: Mother, nfft: int):
+    """Each row's trimmed planar CWT (:func:`_planar_w`: the spectrum in f64
+    rounded once to f32 planes, the CUDA kernels on a CUDA tensor, their
+    plain version below 2^8) and the f32 scales on the rows' device.
+
+    Returns ``(w1, w2, scales)``.
     """
     y1n = torch.as_tensor(y1n)
     y2n = torch.as_tensor(y2n).to(device=y1n.device)
     scales = torch.as_tensor(scales).to(device=y1n.device, dtype=torch.float32)
     kw = dict(mother=mother, nfft=nfft, dt=dt)
-    return _planar_coherence(_planar_w(y1n, scales, **kw),
-                             _planar_w(y2n, scales, **kw), scales, dt=dt,
-                             dj=dj, mother=mother)
+    return _planar_w(y1n, scales, **kw), _planar_w(y2n, scales, **kw), scales
+
+
+def _wct_core_planar(y1n, y2n, scales, dt, *, mother: Mother, nfft: int,
+                     dj: float):
+    """:func:`_wct_core` on real f32 planes: :func:`_planar_ws`, then
+    :func:`_planar_coherence`.  Needs a pow-2 nfft.
+
+    Returns ``(WCT, aWCT, (W12r, W12i))``.
+    """
+    w1, w2, scales = _planar_ws(y1n, y2n, scales, dt, mother=mother, nfft=nfft)
+    return _planar_coherence(w1, w2, scales, dt=dt, dj=dj, mother=mother)
 
 
 def _wct_core(y1n, y2n, scales, dt, *, mother: Mother, nfft: int, dj: float,
@@ -630,24 +659,64 @@ def _histogram(R2, outsidecoi, valid=None, nbins: int = NBINS):
     return counts[:-1].view(*lead, S, nbins)
 
 
+def _mc_counts(acc, noise1, noise2, scales, outsidecoi, dt, *, valid: int,
+               mother: Mother, nfft: int, dj: float, engine: str | None = None):
+    """Add one Monte-Carlo chunk's counts into ``acc`` ``(P, S, NBINS)``
+    int64, in place: the coherence of the surrogate pairs ``noise1``,
+    ``noise2`` ``(P, B, n)``, binned as :func:`_histogram` bins it, outside
+    the COI ``outsidecoi`` ``(S, n)``, over members ``b < valid``.
+
+    On the planar route the smoothed fields of :func:`_planar_fields` go,
+    on a CUDA device, to one ``mc_coherence_counts`` launch
+    (``ops/mc_hist.py``), and elsewhere to :func:`_histogram` of
+    :func:`_coherence_ratio`, the kernel's plain version; neither computes
+    the phase.  Off it, :func:`_histogram` of :func:`_wct_core`'s
+    coherence.  The counts are the same integers on every road."""
+    P, B, n = noise1.shape
+    y1, y2 = noise1.reshape(P * B, n), noise2.reshape(P * B, n)
+    planar = _planar_route(engine, y1.device, y1.dtype, nfft)
+    if planar:
+        with span("wct.core"):
+            w1, w2, sj = _planar_ws(y1, y2, scales, dt, mother=mother, nfft=nfft)
+            Sm, Cm, _ = _planar_fields(w1, w2, sj, dt=dt, dj=dj, mother=mother)
+    else:
+        R2, _, _ = _wct_core(y1, y2, scales, dt, mother=mother, nfft=nfft,
+                             dj=dj, engine=engine)
+    S = scales.shape[0]
+    if planar and mc_hist.on_card(Sm):
+        with span("mc.histogram"):
+            mc_hist.coherence_counts(Sm.view(P, B, S, n), Cm.view(P, B, S, n),
+                                     outsidecoi, valid, acc)
+        return
+    if planar:
+        R2 = _coherence_ratio(Sm, Cm)
+    keep = None if valid >= B else torch.arange(B, device=acc.device) < valid
+    acc += _histogram(R2.reshape(P, B, S, n), outsidecoi, valid=keep)
+    profiling.MC_HIST_PLAIN_CELLS += P * valid * S * n
+
+
 def _mc_histogram_chunk(key, start: int, scales, outsidecoi, dt, *,
                         mother: Mother, nfft: int, dj: float, batch: int,
                         n: int, al1: float, al2: float,
-                        engine: str | None = None):
+                        engine: str | None = None, acc=None):
     """One Monte-Carlo chunk on the device: ``batch`` surrogate pairs →
-    coherence → per-scale counts ``(S, NBINS)`` int64.
+    coherence → per-scale counts ``(S, NBINS)`` int64 (:func:`_mc_counts`),
+    added into ``acc`` in place where one is given.
 
     ``start`` is the chunk's first *global* ensemble index: member streams
     are keyed by global index (:func:`pycwt_torch.stats.rednoise_members`),
     so the summed histogram is the same for any chunking of one
     ``(seed, mc_count)``."""
+    if acc is None:
+        acc = torch.zeros((scales.shape[0], NBINS), dtype=torch.int64,
+                          device=scales.device)
     k1, k2 = split(key)
     idx = start + torch.arange(batch, device=scales.device)
     noise1 = rednoise_members(k1, idx, n, al1, 1.0, dtype=scales.dtype)
     noise2 = rednoise_members(k2, idx, n, al2, 1.0, dtype=scales.dtype)
-    R2, _, _ = _wct_core(noise1, noise2, scales, dt, mother=mother, nfft=nfft,
-                         dj=dj, engine=engine)
-    return _histogram(R2, outsidecoi)
+    _mc_counts(acc[None], noise1[None], noise2[None], scales, outsidecoi, dt,
+               valid=batch, mother=mother, nfft=nfft, dj=dj, engine=engine)
+    return acc
 
 
 def _mc_histogram_run(key, start: int, scales, outsidecoi, dt, *,
@@ -660,10 +729,10 @@ def _mc_histogram_run(key, start: int, scales, outsidecoi, dt, *,
     acc = torch.zeros((scales.shape[0], NBINS), dtype=torch.int64,
                       device=scales.device)
     for i in range(nchunks):
-        acc += _mc_histogram_chunk(
+        _mc_histogram_chunk(
             key, start + i * batch, scales, outsidecoi, dt, mother=mother,
             nfft=nfft, dj=dj, batch=batch, n=n, al1=al1, al2=al2,
-            engine=engine)
+            engine=engine, acc=acc)
     return acc
 
 
@@ -941,8 +1010,8 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
         hist = _mc_histogram_run(key, done, scales_t, oc, dt, batch=mc_batch,
                                  nchunks=nch, **kw)
         if tail:
-            hist += _mc_histogram_chunk(key, done + nch * mc_batch, scales_t,
-                                        oc, dt, batch=tail, **kw)
+            _mc_histogram_chunk(key, done + nch * mc_batch, scales_t, oc, dt,
+                                batch=tail, acc=hist, **kw)
         with span("fetch"):
             wlc += hist.cpu().numpy()
         done = mc_count
@@ -993,11 +1062,9 @@ def _mc_histogram_run_pairs(key, scales, outsidecoi, slots, g1, g2,
                                         dtype=scales.dtype)
         noise2 = rednoise_members_pairs(k2, slots, idx, n, g2, tau,
                                         dtype=scales.dtype)
-        R2, _, _ = _wct_core(noise1.reshape(P * batch, n),
-                             noise2.reshape(P * batch, n), scales, dt,
-                             mother=mother, nfft=nfft, dj=dj, engine=engine)
-        acc += _histogram(R2.reshape(P, batch, S, n), outsidecoi,
-                          valid=idx < mc_count)
+        _mc_counts(acc, noise1, noise2, scales, outsidecoi, dt,
+                   valid=min(batch, max(0, mc_count - i * batch)),
+                   mother=mother, nfft=nfft, dj=dj, engine=engine)
     return acc
 
 

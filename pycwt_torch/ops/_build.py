@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 #: library name -> its CUDA source in csrc/
 SOURCES = {"fused_cwt": "fused_cwt.cu", "direct_cwt": "direct_cwt.cu",
-           "mc_noise": "mc_noise.cu"}
+           "mc_noise": "mc_noise.cu", "mc_hist": "mc_hist.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -58,6 +58,9 @@ _SIGNATURES = {
                              _D, _I, _V, _V], _I),
         "mc_rednoise_f64": ([_V, _V, _V, _V, _I, _I, _I, _I, _D, _V, _D, _D,
                              _D, _I, _V, _V], _I),
+    },
+    "mc_hist": {
+        "mc_coherence_counts": ([_V, _V, _V, _V, _LL, _I, _I, _I, _I, _V], _I),
     },
 }
 

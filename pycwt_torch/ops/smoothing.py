@@ -249,8 +249,8 @@ def smooth_planar_pair(Ta, Tb, dt: float, dj: float, scales, mother: Mother,
     ``x = Ta + i·Tb`` the real smoothing kernel commutes with Re/Im, so the
     real and imaginary planes of ``smooth(x)`` ARE the two smoothed fields.
     Equal to two :func:`smooth_planar_real` calls to round-off.  The WCT
-    path (``coherence._wct_core_planar``) packs (|W1|², |W2|²) and
-    (Re W12, Im W12) this way.  ``precision`` as in
+    path (``coherence._planar_fields``) packs (|W1|², |W2|²) and
+    (Re W12, Im W12) this way, and keeps the complex results.  ``precision`` as in
     :func:`smooth_planar_real`."""
     _check_precision(precision)
     sm = smooth(torch.complex(torch.as_tensor(Ta), torch.as_tensor(Tb)), dt, dj,

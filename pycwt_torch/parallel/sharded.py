@@ -34,7 +34,6 @@ import torch
 from ..config import CWTConfig
 from ..mothers import Mother
 from ..ops.smoothing import _boxcar_halos, _scale_window, smooth_scale_sharded
-from ..stats import rednoise_members, split
 from ..transform import cwt_batch, icwt_batch
 from ._collectives import axis_rank, axis_size, mesh_device, psum, to_dtensor
 from ._collectives import block as _block
@@ -252,31 +251,31 @@ def sharded_mc_histogram(mesh, key, scales, outsidecoi, dt, *,
                          nbins: int = 1000, engine: str | None = None):
     """Monte-Carlo coherence histogram sharded over 'mc'.
 
-    Each rank draws ``per_device_batch`` AR(1) surrogate pairs, runs the
-    whole CWT → smoothing → coherence pipeline, counts ``floor(R²·nbins)``
-    outside the COI in integers, and one ``psum`` over 'mc' reduces the
-    ``(S, nbins)`` counts.  Members are keyed by their *global* ensemble
-    index (``rank·per_device_batch + arange``, through
-    :func:`pycwt_torch.stats.rednoise_members`), so the counts are
+    Each rank runs one chunk of ``per_device_batch`` AR(1) surrogate pairs
+    (``coherence._mc_histogram_chunk``: the whole CWT → smoothing →
+    coherence pipeline, counted in ``(S, NBINS)`` integers outside the COI)
+    and one ``psum`` over 'mc' reduces the counts.  Members are keyed by
+    their *global* ensemble index (``rank·per_device_batch + arange``,
+    through :func:`pycwt_torch.stats.rednoise_members`), so the counts are
     bit-identical across every 'mc' factorization of the same total and to
-    the single-device chunks of ``coherence.wct_significance``.  Returns the
-    int64 counts, replicated (``P()``).
+    the single-device chunks of ``coherence.wct_significance``.  ``nbins``
+    must be ``NBINS`` (1000).  Returns the int64 counts, replicated
+    (``P()``).
     """
-    from ..coherence import _histogram, _wct_core
+    from ..coherence import NBINS, _mc_histogram_chunk
 
+    if nbins != NBINS:
+        raise ValueError(f"nbins must be {NBINS}, the bins the counts are kept in, "
+                         f"got {nbins}")
     dev = mesh_device(mesh)
     sj = _on(mesh, scales)
     oc = _on(mesh, outsidecoi).to(torch.bool)
     key = tuple(k.to(dev) for k in key)
     start = axis_rank(mesh, "mc") * per_device_batch
-    idx = start + torch.arange(per_device_batch, device=dev)
-    k1, k2 = split(key)
-    noise1 = rednoise_members(k1, idx, n, al1, 1.0, dtype=sj.dtype)
-    noise2 = rednoise_members(k2, idx, n, al2, 1.0, dtype=sj.dtype)
-    R2, _, _ = _wct_core(noise1, noise2, sj, dt, mother=mother, nfft=nfft,
-                         dj=dj, engine=engine)
-    hist = psum(_histogram(R2, oc, nbins=nbins), mesh, "mc")
-    return to_dtensor(hist, mesh, {})
+    hist = _mc_histogram_chunk(key, start, sj, oc, dt, mother=mother, nfft=nfft, dj=dj,
+                               batch=per_device_batch, n=n, al1=al1, al2=al2,
+                               engine=engine)
+    return to_dtensor(psum(hist, mesh, "mc"), mesh, {})
 
 
 def sharded_mc_histogram_pairs(mesh, key, scales, outsidecoi, slots,

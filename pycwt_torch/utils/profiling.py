@@ -22,7 +22,8 @@ each name's count, total and self nanoseconds.
   ``coherence.wct_significance_batch``, and ``mc.readout``: its readout of
   each distinct null and the fan-out to the pairs; ``mc.generate``:
   ``stats.rednoise_members`` and ``rednoise_members_pairs``;
-  ``mc.histogram``: ``coherence._histogram`` (MC significance);
+  ``mc.histogram``: ``coherence._histogram`` and the launch of the
+  counts kernel in ``coherence._mc_counts`` (MC significance);
 * ``cwt_batch``: ``transform.cwt_batch`` (API, long records);
 * ``cwt_power``: ``api.cwt_power``, the whole call (API);
 * ``wct_matrix``: ``coherence.wct_matrix``, the whole call (API);
@@ -42,11 +43,14 @@ of its fetches that went through page-locked memory, and
 ``coherence._wct_matrix_blocks`` computed and the blocks it ran them in,
 :data:`MC_KERNEL_ROWS` and :data:`MC_PLAIN_ROWS` the Monte-Carlo
 surrogate rows drawn on the card by the generator kernel
-(``ops/mc_noise.py``) and by the torch path, and :data:`MC_NULLS`,
+(``ops/mc_noise.py``) and by the torch path, :data:`MC_NULLS`,
 :data:`MC_NULL_MEMBERS` and :data:`MC_NULL_CHUNKS` the distinct nulls that
 ``coherence.wct_significance_batch`` simulated, the member pairs it drew
-for them and the chunks it ran, whether the recorder is on or off;
-:func:`enable_spans` sets all nine back to 0.
+for them and the chunks it ran, and :data:`MC_HIST_KERNEL_CELLS` and
+:data:`MC_HIST_PLAIN_CELLS` the points of the Monte-Carlo chunks' fields
+binned by the counts kernel (``ops/mc_hist.py``) and by the torch path,
+whether the recorder is on or off; :func:`enable_spans` sets all eleven
+back to 0.
 """
 from __future__ import annotations
 
@@ -100,6 +104,12 @@ MC_PLAIN_ROWS = 0
 MC_NULLS = 0
 MC_NULL_MEMBERS = 0
 MC_NULL_CHUNKS = 0
+#: points (member × scale × time, members past ``mc_count`` left out) of
+#: the Monte-Carlo chunks' fields binned by ``mc_coherence_counts``, and by
+#: the torch path of ``coherence._mc_counts`` (on the CPU too), counted
+#: alike
+MC_HIST_KERNEL_CELLS = 0
+MC_HIST_PLAIN_CELLS = 0
 
 
 def enable_spans() -> None:
@@ -107,11 +117,13 @@ def enable_spans() -> None:
     counters; a call while it is on does nothing."""
     global _on, HOST_BYTES, HOST_PINNED_FETCHES, MATRIX_PAIRS, MATRIX_PAIR_BLOCKS
     global MC_KERNEL_ROWS, MC_PLAIN_ROWS, MC_NULLS, MC_NULL_MEMBERS, MC_NULL_CHUNKS
+    global MC_HIST_KERNEL_CELLS, MC_HIST_PLAIN_CELLS
     if _on:
         return
     HOST_BYTES = HOST_PINNED_FETCHES = MATRIX_PAIRS = MATRIX_PAIR_BLOCKS = 0
     MC_KERNEL_ROWS = MC_PLAIN_ROWS = 0
     MC_NULLS = MC_NULL_MEMBERS = MC_NULL_CHUNKS = 0
+    MC_HIST_KERNEL_CELLS = MC_HIST_PLAIN_CELLS = 0
     _stack.clear()
     _totals.clear()
     _profiled.clear()
