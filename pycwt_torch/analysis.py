@@ -272,9 +272,10 @@ def wct_matrix_analysis(y, dt, dj=1 / 12, s0=-1, J=-1, mother="morlet",
     ``freq``, ``period``.
 
     **Tracing** (``utils.profiling``): the span ``wct_matrix_analysis``
-    holds the call; inside it ``wct_matrix`` and ``mc.batch``
-    (``wct_significance_batch``, with its ``fetch`` and ``mc.readout``), so
-    its self time is the AR(1) fits and the glue.  The counters
+    holds the call; inside it ``wct_matrix``, ``ar1`` (the stations'
+    AR(1) fits) and ``mc.batch`` (``wct_significance_batch``, with its
+    ``mc.setup``, ``mc.chunks``, ``fetch`` and ``mc.readout``), so its
+    self time is the glue.  The counters
     ``profiling.MC_NULLS``, ``MC_NULL_MEMBERS`` and ``MC_NULL_CHUNKS`` add
     the distinct nulls, member pairs and chunks of the significance.
     """
@@ -292,7 +293,8 @@ def wct_matrix_analysis(y, dt, dj=1 / 12, s0=-1, J=-1, mother="morlet",
         y, dt, dj=dj, s0=s0, J=J, wavelet=m, pairs=pairs,
         normalize=normalize, as_numpy=as_numpy, device=device)
 
-    g, _, _ = ar1_batch(y)
+    with span("ar1"):
+        g, _, _ = ar1_batch(y)
     g = np.clip(np.where(np.isfinite(g), g, 0.0), -0.99, 0.99)
     if sig:
         sig95 = wct_significance_batch(

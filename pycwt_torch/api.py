@@ -101,6 +101,15 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return out
 
 
+def _upload(a, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(a, dtype=dtype, device=device)`` of a host array,
+    its bytes as the device holds them added to ``profiling.UPLOAD_BYTES``.
+    The caller puts its copies in one span ``upload``."""
+    t = torch.as_tensor(a, dtype=dtype, device=device)
+    profiling.UPLOAD_BYTES += t.numel() * t.element_size()
+    return t
+
+
 def cwt(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet", freqs=None,
         config: CWTConfig = DEFAULT, device=None):
     """Continuous wavelet transform of a 1-D signal.
@@ -117,9 +126,11 @@ def cwt(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet", freqs=None,
 
     # f64 rows: the kernels' route takes their spectrum in f64 and rounds it
     # once; the other routes round the rows to config.real_dtype first
-    x = torch.as_tensor(signal[None, :], dtype=torch.float64, device=device)
-    W, signal_ft = cwt_batch(x, torch.as_tensor(g.sj, device=device), dt,
-                             mother=mother, nfft=g.nfft, config=config)
+    with span("upload"):
+        x = _upload(signal[None, :], device, torch.float64)
+        sj = _upload(g.sj, device)
+    W, signal_ft = cwt_batch(x, sj, dt, mother=mother, nfft=g.nfft,
+                             config=config)
     W = _host(W[0])
     signal_ft = _host(signal_ft[0])
     return (
@@ -149,10 +160,11 @@ def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     signal = np.asarray(signal)
     n0 = len(signal)
     g = _host_grid(n0, dt, dj, s0, J, mother, config.fft_length, freqs)
-    out = _planar_cwt_of_real(
-        torch.as_tensor(signal, dtype=torch.float64, device=device), g.sj,
-        mother=mother, nfft=g.nfft, dt=dt, precision=config.precision,
-        output=output)
+    with span("upload"):
+        x = _upload(signal, device, torch.float64)
+        sj = _upload(g.sj, device, torch.float32)
+    out = _planar_cwt_of_real(x, sj, mother=mother, nfft=g.nfft, dt=dt,
+                              precision=config.precision, output=output)
     if output == "power":
         return _host(out[:, :n0]), g.sj, g.freqs, g.coi
     wr, wi = out

@@ -262,7 +262,7 @@ def wct(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, sig=True, significance_level=0.95,
     included; ``kwargs`` go to :func:`wct_significance` (``mc_count``,
     ``cache``, ``progress``, ``seed``, ...), which runs on ``device`` too.
     """
-    from .api import _host, _resolve_device
+    from .api import _host, _resolve_device, _upload
 
     device = _resolve_device(device)
     mother = as_mother(wavelet)
@@ -274,16 +274,17 @@ def wct(y1, y2, dt, dj=1 / 12, s0=-1, J=-1, sig=True, significance_level=0.95,
     # mothers keep the reference's scale axis.
     g = _host_grid(y1.size, dt, dj, s0, J, mother, config.fft_length)
     rdt = config.real_dtype
-    WCT, aWCT, _ = _wct_core(
-        torch.as_tensor(y1_n, dtype=rdt, device=device)[None],
-        torch.as_tensor(y2_n, dtype=rdt, device=device)[None],
-        torch.as_tensor(g.sj, dtype=rdt, device=device),
-        dt, mother=mother, nfft=g.nfft, dj=dj, engine=config.engine,
-    )
+    with span("upload"):
+        x1 = _upload(y1_n, device, rdt)[None]
+        x2 = _upload(y2_n, device, rdt)[None]
+        sj = _upload(g.sj, device, rdt)
+    WCT, aWCT, _ = _wct_core(x1, x2, sj, dt, mother=mother, nfft=g.nfft,
+                             dj=dj, engine=config.engine)
 
     if sig:
-        a1, _, _ = ar1(y1)
-        a2, _, _ = ar1(y2)
+        with span("ar1"):
+            a1, _, _ = ar1(y1)
+            a2, _, _ = ar1(y2)
         sig_out = wct_significance(
             a1, a2, dt=dt, dj=dj, s0=g.s0, J=g.J,
             significance_level=significance_level, wavelet=mother,
@@ -510,13 +511,15 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     ``(P, S, n0)`` and ``pairs`` the ``(P, 2)`` index array used.
 
     **Tracing** (``utils.profiling``): the span ``wct_matrix`` holds the
-    call, ``wct_matrix.fields`` the shared transforms and self-smoothings,
-    ``wct_matrix.pairs`` the loop over the blocks of pairs, and ``fetch``
-    each map's copy to the host; the counters ``profiling.MATRIX_PAIRS``
-    and ``profiling.MATRIX_PAIR_BLOCKS`` add the pairs computed and the
-    blocks run.
+    call, ``grid`` its host grid, ``upload`` the copies of the rows, the
+    pair indices and the scales to the device, ``wct_matrix.fields`` the
+    shared transforms and self-smoothings, ``wct_matrix.pairs`` the loop
+    over the blocks of pairs, and ``fetch`` each map's copy to the host;
+    the counters ``profiling.MATRIX_PAIRS`` and
+    ``profiling.MATRIX_PAIR_BLOCKS`` add the pairs computed and the blocks
+    run.
     """
-    from .api import _host, _resolve_device
+    from .api import _host, _resolve_device, _upload
 
     device = _resolve_device(device)
     mother = as_mother(wavelet)
@@ -556,13 +559,15 @@ def wct_matrix(y, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
     blk = pair_block if pair_block is not None else _pairs_block(
         P, S, nfft, _itemsize(rdt), planes=48)
     blk = int(min(P, blk))
-    y_n = torch.as_tensor(_rows_normalized(y, normalize), dtype=rdt, device=device)
+    rows = _rows_normalized(y, normalize)
+    with span("upload"):
+        y_n = _upload(rows, device, rdt)
+        i1 = _upload(pairs[:, 0], device, torch.int64)
+        i2 = _upload(pairs[:, 1], device, torch.int64)
+        sj = _upload(g.sj, device, rdt)
     WCT, aWCT = _wct_matrix_blocks(
-        y_n, torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=device),
-        torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=device),
-        torch.as_tensor(g.sj, dtype=rdt, device=device), dt, mother=mother,
-        nfft=nfft, dj=dj, engine=config.engine, block=blk,
-        precision=config.precision)
+        y_n, i1, i2, sj, dt, mother=mother, nfft=nfft, dj=dj,
+        engine=config.engine, block=blk, precision=config.precision)
     if not as_numpy:
         return WCT, aWCT, g.coi, g.freqs, pairs
     return _host(WCT), _host(aWCT), g.coi, g.freqs, pairs
@@ -736,6 +741,7 @@ def _mc_histogram_run(key, start: int, scales, outsidecoi, dt, *,
     return acc
 
 
+@span("mc.quantile")
 def mc_significance_from_histogram(wlc: np.ndarray, maxscale: int,
                                    significance_level: float,
                                    outsidecoi_any: np.ndarray) -> np.ndarray:
@@ -930,12 +936,18 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
       uninterrupted run.  Without one, the chunks run back to back on the
       device and the histogram is fetched once.
     * ``device=None`` means the card (it raises without one).
+    * Tracing (``utils.profiling``): the span ``mc`` holds the call;
+      ``mc.setup`` the work from the cache's miss to the first chunk (the
+      surrogate grid, the chunk sizing, the ``upload`` of the grid and the
+      key, the checkpoint's read); ``mc.chunks`` the host's enqueue of the
+      chunks; ``fetch`` the counts' copy home; ``mc.quantile`` the
+      readout of the counts into the curve.
     * In a process group of several ranks (``pycwt_torch.parallel``), only
       rank 0 reads and writes the cache and the checkpoint; a hit or a
       resumed state is broadcast, so every rank returns the same curve.
       Every rank calls this together.
     """
-    from .api import _resolve_device
+    from .api import _resolve_device, _upload
     from .parallel.distributed import (host_broadcast_array, is_coordinator,
                                        process_count)
 
@@ -960,58 +972,64 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
         if cached is not None:
             return cached
 
-    if progress:
-        print("Calculating wavelet coherence significance")
-
-    n, sj, outsidecoi, outsidecoi_any, maxscale = _surrogate_grid(
-        dt, dj, s0, J, mother)
-    nfft = config.fft_length(n)
-    if mc_batch is None:
-        mc_batch = _mc_auto_batch(mc_count, J + 1, nfft, n)
+    with span("mc.setup"):
         if progress:
-            print(f"  mc_batch auto-sized to {mc_batch}")
-    dtype = config.real_dtype
-    scales_t = torch.as_tensor(sj, dtype=dtype, device=device)
-    oc = torch.as_tensor(outsidecoi, device=device)
-    kw = dict(mother=mother, nfft=nfft, dj=dj, n=n, al1=float(al1),
-              al2=float(al2), engine=config.engine)
+            print("Calculating wavelet coherence significance")
 
-    wlc = np.zeros((J + 1, NBINS), dtype=np.float64)
-    key = PRNGKey(seed, device=device)
-    done = 0
+        n, sj, outsidecoi, outsidecoi_any, maxscale = _surrogate_grid(
+            dt, dj, s0, J, mother)
+        nfft = config.fft_length(n)
+        if mc_batch is None:
+            mc_batch = _mc_auto_batch(mc_count, J + 1, nfft, n)
+            if progress:
+                print(f"  mc_batch auto-sized to {mc_batch}")
+        dtype = config.real_dtype
+        with span("upload"):
+            scales_t = _upload(sj, device, dtype)
+            oc = _upload(outsidecoi, device)
+            key = PRNGKey(seed, device=device)
+        kw = dict(mother=mother, nfft=nfft, dj=dj, n=n, al1=float(al1),
+                  al2=float(al2), engine=config.engine)
 
-    # pycwt_tpu's checkpoint fingerprint: every input that shapes the
-    # histogram except mc_count (members are keyed by global index, so a
-    # checkpoint of members [0, done) serves any count >= done).
-    config_tag = float(zlib.crc32(
-        f"{mother!r}|{config.engine}|{_dtype_name(dtype)}".encode()))
-    ckpt_meta = np.array([seed, J, float(al1), float(al2), dj,
-                          s0, dt, config_tag], dtype=np.float64)
-    if checkpoint is not None and is_coord:
-        try:
-            z = np.load(checkpoint)
-            if (z["meta"].shape == ckpt_meta.shape
-                    and np.allclose(z["meta"], ckpt_meta)
-                    and z["wlc"].shape == wlc.shape
-                    and int(z["done"]) <= mc_count):
-                wlc = np.asarray(z["wlc"], np.float64)
-                done = int(z["done"])
-                if progress:
-                    print(f"  resumed MC from checkpoint at {done}/{mc_count}")
-        except (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile):
-            pass   # no, foreign or truncated checkpoint: start afresh
-    if checkpoint is not None and multi:
-        state = host_broadcast_array(np.concatenate([[float(done)], wlc.ravel()]))
-        done = int(state[0])
-        wlc = state[1:].reshape(wlc.shape)
+        wlc = np.zeros((J + 1, NBINS), dtype=np.float64)
+        done = 0
+
+        # pycwt_tpu's checkpoint fingerprint: every input that shapes the
+        # histogram except mc_count (members are keyed by global index, so
+        # a checkpoint of members [0, done) serves any count >= done).
+        config_tag = float(zlib.crc32(
+            f"{mother!r}|{config.engine}|{_dtype_name(dtype)}".encode()))
+        ckpt_meta = np.array([seed, J, float(al1), float(al2), dj,
+                              s0, dt, config_tag], dtype=np.float64)
+        if checkpoint is not None and is_coord:
+            try:
+                z = np.load(checkpoint)
+                if (z["meta"].shape == ckpt_meta.shape
+                        and np.allclose(z["meta"], ckpt_meta)
+                        and z["wlc"].shape == wlc.shape
+                        and int(z["done"]) <= mc_count):
+                    wlc = np.asarray(z["wlc"], np.float64)
+                    done = int(z["done"])
+                    if progress:
+                        print(f"  resumed MC from checkpoint at "
+                              f"{done}/{mc_count}")
+            except (OSError, EOFError, ValueError, KeyError,
+                    zipfile.BadZipFile):
+                pass   # no, foreign or truncated checkpoint: start afresh
+        if checkpoint is not None and multi:
+            state = host_broadcast_array(
+                np.concatenate([[float(done)], wlc.ravel()]))
+            done = int(state[0])
+            wlc = state[1:].reshape(wlc.shape)
 
     if checkpoint is None:
         nch, tail = divmod(mc_count - done, mc_batch)
-        hist = _mc_histogram_run(key, done, scales_t, oc, dt, batch=mc_batch,
-                                 nchunks=nch, **kw)
-        if tail:
-            _mc_histogram_chunk(key, done + nch * mc_batch, scales_t, oc, dt,
-                                batch=tail, acc=hist, **kw)
+        with span("mc.chunks"):
+            hist = _mc_histogram_run(key, done, scales_t, oc, dt,
+                                     batch=mc_batch, nchunks=nch, **kw)
+            if tail:
+                _mc_histogram_chunk(key, done + nch * mc_batch, scales_t, oc,
+                                    dt, batch=tail, acc=hist, **kw)
         with span("fetch"):
             wlc += hist.cpu().numpy()
         done = mc_count
@@ -1019,7 +1037,9 @@ def wct_significance(al1, al2, dt, dj, s0, J, significance_level=0.95,
             print(f"  MC surrogates: {done}/{mc_count}", end="\r")
     while done < mc_count:
         b = min(mc_batch, mc_count - done)
-        hist = _mc_histogram_chunk(key, done, scales_t, oc, dt, batch=b, **kw)
+        with span("mc.chunks"):
+            hist = _mc_histogram_chunk(key, done, scales_t, oc, dt, batch=b,
+                                       **kw)
         with span("fetch"):
             wlc += hist.cpu().numpy()
         done += b
@@ -1111,17 +1131,21 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
       different cache contents disagree.)  Every rank calls this together.
 
     **Tracing** (``utils.profiling``): the span ``mc.batch`` holds the
-    call, ``fetch`` the copy of the counts to the host (with the wait for
-    the card's queue), and ``mc.readout`` the readout of each distinct null
-    and its fan-out to the pairs; the chunks' ``mc.generate``, ``wct.core``
-    and ``mc.histogram`` nest inside.  The counters
+    call; ``mc.setup`` the deduplication, the surrogate grid, the block
+    sizing and padding and the ``upload`` of the grid and the key;
+    ``mc.chunks`` the loop over the blocks (each block's coefficients'
+    ``upload``, the chunks' ``mc.generate``, ``wct.core`` and
+    ``mc.histogram``); ``fetch`` the copy of the counts to the host (with
+    the wait for the card's queue); and ``mc.readout`` the readout of each
+    distinct null (an ``mc.quantile`` each) and its fan-out to the
+    pairs.  The counters
     ``profiling.MC_NULLS``, ``MC_NULL_MEMBERS`` and ``MC_NULL_CHUNKS`` add
     the distinct nulls simulated, the member pairs drawn for them (a
     block's padding and the last chunk's overdraw included) and the chunks
     run.  They count the whole call: under a mesh every rank adds the same
     totals, not the share that it drew itself.
     """
-    from .api import _resolve_device
+    from .api import _resolve_device, _upload
     from .parallel.distributed import (host_broadcast_array, is_coordinator,
                                        process_count)
 
@@ -1182,87 +1206,93 @@ def wct_significance_batch(al1, al2, dt, dj, s0, J, significance_level=0.95,
                 print("NOTE: WCT significance batch loaded from cache.\n")
             return sig
 
-    if alpha_quant is None:
-        alpha_quant = _auto_alpha_quant(mc_count)
-    canon = [_canonical_null_key(al1[p], al2[p], alpha_quant)
-             for p in range(P)]
-    key_index: dict = {}
-    owner = np.full(P, -1)
-    for p in range(P):
-        if not have[p]:
-            owner[p] = key_index.setdefault(canon[p], len(key_index))
-    nulls = list(key_index)                        # distinct keys, in order
-    Pd = len(nulls)
-    rep_a1 = np.asarray([k[0] for k in nulls], np.float64)
-    rep_a2 = np.asarray([k[1] for k in nulls], np.float64)
-    # Member streams are keyed by a stable hash of the canonical key (not a
-    # position): the same null draws the same surrogates in any batch.
-    rep_slot = np.asarray([zlib.crc32(f"{a:.17g}|{b:.17g}".encode())
-                           & 0x7FFFFFFF for a, b in nulls], np.int64)
+    with span("mc.setup"):
+        if alpha_quant is None:
+            alpha_quant = _auto_alpha_quant(mc_count)
+        canon = [_canonical_null_key(al1[p], al2[p], alpha_quant)
+                 for p in range(P)]
+        key_index: dict = {}
+        owner = np.full(P, -1)
+        for p in range(P):
+            if not have[p]:
+                owner[p] = key_index.setdefault(canon[p], len(key_index))
+        nulls = list(key_index)                    # distinct keys, in order
+        Pd = len(nulls)
+        rep_a1 = np.asarray([k[0] for k in nulls], np.float64)
+        rep_a2 = np.asarray([k[1] for k in nulls], np.float64)
+        # Member streams are keyed by a stable hash of the canonical key
+        # (not a position): the same null draws the same surrogates in any
+        # batch.
+        rep_slot = np.asarray([zlib.crc32(f"{a:.17g}|{b:.17g}".encode())
+                               & 0x7FFFFFFF for a, b in nulls], np.int64)
 
-    if progress:
-        print(f"Calculating wavelet coherence significance "
-              f"({P} alpha-pairs: {int(have.sum())} cached, "
-              f"{Pd} distinct nulls)")
+        if progress:
+            print(f"Calculating wavelet coherence significance "
+                  f"({P} alpha-pairs: {int(have.sum())} cached, "
+                  f"{Pd} distinct nulls)")
 
-    n, sj, outsidecoi, outsidecoi_any, maxscale = _surrogate_grid(
-        dt, dj, s0, J, mother)
-    nfft = config.fft_length(n)
-    # A chunk holds pair_block·mc_batch members: the block shrinks below 64
-    # where the bytes model says the members do not fit.
-    members_fit = _mc_auto_batch(mc_count * 64, J + 1, nfft, n)
-    if pair_block is not None:
-        Pblk = max(1, min(int(pair_block), Pd))
-    else:
-        Pblk = max(1, min(Pd, 64, members_fit))
-    if D > 1:
-        # Sharded: the block spreads over the mesh dim, so it must divide
-        # by D, and the bytes model bounds one rank's slice of it.
-        Pblk = -(-Pblk // D) * D
-    if mc_batch is None:
-        mc_batch = max(1, members_fit // max(1, Pblk // D))
-    mc_batch = min(int(mc_batch), mc_count)
-    nchunks = -(-mc_count // mc_batch)
-    # One burn-in for the block, sized for the largest |g| and rounded up to
-    # a power of two (>= 8), as pycwt_tpu buckets it.
-    tau = _burn_in(float(np.max(np.abs(np.concatenate([rep_a1, rep_a2])))))
-    if tau > 0:
-        tau = 1 << max(3, (tau - 1).bit_length())
-
-    dtype = config.real_dtype
-    npad = (-Pd) % Pblk
-    a1p = np.concatenate([rep_a1, np.repeat(rep_a1[-1], npad)])
-    a2p = np.concatenate([rep_a2, np.repeat(rep_a2[-1], npad)])
-    slots_p = np.concatenate([rep_slot, np.repeat(rep_slot[-1], npad)])
-    key = PRNGKey(seed, device=device)
-    sj_t = torch.as_tensor(sj, dtype=dtype, device=device)
-    oc_t = torch.as_tensor(outsidecoi, device=device)
-    profiling.MC_NULLS += Pd
-    blocks = []
-    for b0 in range(0, Pd + npad, Pblk):
-        profiling.MC_NULL_MEMBERS += Pblk * mc_batch * nchunks
-        profiling.MC_NULL_CHUNKS += nchunks
-        blk = slice(b0, b0 + Pblk)
+        n, sj, outsidecoi, outsidecoi_any, maxscale = _surrogate_grid(
+            dt, dj, s0, J, mother)
+        nfft = config.fft_length(n)
+        # A chunk holds pair_block·mc_batch members: the block shrinks below
+        # 64 where the bytes model says the members do not fit.
+        members_fit = _mc_auto_batch(mc_count * 64, J + 1, nfft, n)
+        if pair_block is not None:
+            Pblk = max(1, min(int(pair_block), Pd))
+        else:
+            Pblk = max(1, min(Pd, 64, members_fit))
         if D > 1:
-            from .parallel._collectives import gather
-            from .parallel.sharded import sharded_mc_histogram_pairs
+            # Sharded: the block spreads over the mesh dim, so it must
+            # divide by D, and the bytes model bounds one rank's slice of it.
+            Pblk = -(-Pblk // D) * D
+        if mc_batch is None:
+            mc_batch = max(1, members_fit // max(1, Pblk // D))
+        mc_batch = min(int(mc_batch), mc_count)
+        nchunks = -(-mc_count // mc_batch)
+        # One burn-in for the block, sized for the largest |g| and rounded
+        # up to a power of two (>= 8), as pycwt_tpu buckets it.
+        tau = _burn_in(float(np.max(np.abs(np.concatenate([rep_a1, rep_a2])))))
+        if tau > 0:
+            tau = 1 << max(3, (tau - 1).bit_length())
 
-            counts = sharded_mc_histogram_pairs(
-                mesh, key, sj_t, oc_t, slots_p[blk], a1p[blk], a2p[blk],
-                mc_count, dt, mother=mother, nfft=nfft, dj=dj, batch=mc_batch,
-                nchunks=nchunks, n=n, tau=tau, engine=config.engine,
-                axis_name=mesh_axis)
-            blocks.append(gather(counts.to_local(), mesh, mesh_axis))
-            continue
-        blocks.append(_mc_histogram_run_pairs(
-            key, sj_t, oc_t, torch.as_tensor(slots_p[blk], device=device),
-            torch.as_tensor(a1p[blk], dtype=dtype, device=device),
-            torch.as_tensor(a2p[blk], dtype=dtype, device=device), mc_count,
-            dt, mother=mother, nfft=nfft, dj=dj, batch=mc_batch,
-            nchunks=nchunks, n=n, tau=tau, engine=config.engine))
-        if progress and len(blocks) > 1:
-            print(f"  null blocks: {min(len(blocks) * Pblk, Pd)}/{Pd}",
-                  end="\r")
+        dtype = config.real_dtype
+        npad = (-Pd) % Pblk
+        a1p = np.concatenate([rep_a1, np.repeat(rep_a1[-1], npad)])
+        a2p = np.concatenate([rep_a2, np.repeat(rep_a2[-1], npad)])
+        slots_p = np.concatenate([rep_slot, np.repeat(rep_slot[-1], npad)])
+        with span("upload"):
+            key = PRNGKey(seed, device=device)
+            sj_t = _upload(sj, device, dtype)
+            oc_t = _upload(outsidecoi, device)
+    profiling.MC_NULLS += Pd
+    with span("mc.chunks"):
+        blocks = []
+        for b0 in range(0, Pd + npad, Pblk):
+            profiling.MC_NULL_MEMBERS += Pblk * mc_batch * nchunks
+            profiling.MC_NULL_CHUNKS += nchunks
+            blk = slice(b0, b0 + Pblk)
+            if D > 1:
+                from .parallel._collectives import gather
+                from .parallel.sharded import sharded_mc_histogram_pairs
+
+                counts = sharded_mc_histogram_pairs(
+                    mesh, key, sj_t, oc_t, slots_p[blk], a1p[blk], a2p[blk],
+                    mc_count, dt, mother=mother, nfft=nfft, dj=dj,
+                    batch=mc_batch, nchunks=nchunks, n=n, tau=tau,
+                    engine=config.engine, axis_name=mesh_axis)
+                blocks.append(gather(counts.to_local(), mesh, mesh_axis))
+                continue
+            with span("upload"):
+                slots_t = _upload(slots_p[blk], device)
+                g1 = _upload(a1p[blk], device, dtype)
+                g2 = _upload(a2p[blk], device, dtype)
+            blocks.append(_mc_histogram_run_pairs(
+                key, sj_t, oc_t, slots_t, g1, g2, mc_count, dt,
+                mother=mother, nfft=nfft, dj=dj, batch=mc_batch,
+                nchunks=nchunks, n=n, tau=tau, engine=config.engine))
+            if progress and len(blocks) > 1:
+                print(f"  null blocks: {min(len(blocks) * Pblk, Pd)}/{Pd}",
+                      end="\r")
     with span("fetch"):
         wlc = torch.cat(blocks).cpu().numpy().astype(np.float64)[:Pd]
     if progress:

@@ -119,11 +119,13 @@ class _HostGrid(NamedTuple):
     J: int
 
 
+@span("grid")
 def _host_grid(n0: int, dt: float, dj: float, s0: float, J: int,
                mother: Mother, fft_length, freqs=None) -> _HostGrid:
     """The host grid of ``n0`` samples padded to ``fft_length(n0)``:
     :func:`build_scale_grid`, the NaN-row drop on the one angular-frequency
-    array, and :func:`coi_bartlett`, in that order and in f64."""
+    array, and :func:`coi_bartlett`, in that order and in f64; the span
+    ``grid`` holds it."""
     grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother,
                             freqs=freqs)
     nfft = fft_length(n0)

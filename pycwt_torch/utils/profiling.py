@@ -11,6 +11,17 @@ layer boundaries (:class:`span`), off by default and switched by
 each name's count, total and self nanoseconds.
 
 * ``wct``: ``coherence.wct``, the whole call (API);
+* ``grid``: ``transform._host_grid``, every surface's one host grid: the
+  scales, ``2π·fftfreq(nfft)``, the NaN-row drop and the COI (API);
+* ``upload``: the host→device copies of the caller's data and grids, one
+  block a site group: ``api.cwt``, ``api._cwt_planar_parts``,
+  ``coherence.wct``, ``wct_matrix``, ``wct_significance`` (with the key)
+  and ``wct_significance_batch`` (the grid and key, then each block's
+  coefficients); a copy from pageable memory waits for the device's
+  queue (API, host upload);
+* ``ar1``: the AR(1) fits on the host, ``stats.ar1`` twice in
+  ``coherence.wct`` and ``stats.ar1_batch`` in
+  ``analysis.wct_matrix_analysis`` (API);
 * ``fetch``: ``api._host`` and the Monte-Carlo counts' copy in
   ``coherence.wct_significance`` and ``wct_significance_batch``, the wait
   for the device's queue and the copy (API, host fetch);
@@ -20,10 +31,16 @@ each name's count, total and self nanoseconds.
 * ``smooth``: ``ops.smoothing.smooth`` (smoothing);
 * ``mc``: ``coherence.wct_significance``; ``mc.batch``:
   ``coherence.wct_significance_batch``, and ``mc.readout``: its readout of
-  each distinct null and the fan-out to the pairs; ``mc.generate``:
-  ``stats.rednoise_members`` and ``rednoise_members_pairs``;
-  ``mc.histogram``: ``coherence._histogram`` and the launch of the
-  counts kernel in ``coherence._mc_counts`` (MC significance);
+  each distinct null and the fan-out to the pairs; ``mc.setup``: in
+  either, the work from the cache's miss to the first chunk (the
+  surrogate grid, the chunk sizing, the batch path's deduplication and
+  padding, the checkpoint's read, ``upload``); ``mc.chunks``: the host's
+  enqueue of the chunks, up to the counts' ``fetch``; ``mc.quantile``:
+  ``coherence.mc_significance_from_histogram``, one null's readout into
+  a curve; ``mc.generate``: ``stats.rednoise_members`` and
+  ``rednoise_members_pairs``; ``mc.histogram``: ``coherence._histogram``
+  and the launch of the counts kernel in ``coherence._mc_counts`` (MC
+  significance);
 * ``cwt_batch``: ``transform.cwt_batch`` (API, long records);
 * ``cwt_power``: ``api.cwt_power``, the whole call (API);
 * ``wct_matrix``: ``coherence.wct_matrix``, the whole call (API);
@@ -38,7 +55,8 @@ No span synchronizes the device: a span's time is the host's, and a
 
 Beside the recorder, :data:`HOST_BYTES` counts the bytes that
 ``api._host`` has copied to the host, :data:`HOST_PINNED_FETCHES` those
-of its fetches that went through page-locked memory, and
+of its fetches that went through page-locked memory, :data:`UPLOAD_BYTES`
+the bytes that the ``upload`` sites have copied to the device, and
 :data:`MATRIX_PAIRS` and :data:`MATRIX_PAIR_BLOCKS` the pairs whose maps
 ``coherence._wct_matrix_blocks`` computed and the blocks it ran them in,
 :data:`MC_KERNEL_ROWS` and :data:`MC_PLAIN_ROWS` the Monte-Carlo
@@ -49,7 +67,7 @@ surrogate rows drawn on the card by the generator kernel
 for them and the chunks it ran, and :data:`MC_HIST_KERNEL_CELLS` and
 :data:`MC_HIST_PLAIN_CELLS` the points of the Monte-Carlo chunks' fields
 binned by the counts kernel (``ops/mc_hist.py``) and by the torch path,
-whether the recorder is on or off; :func:`enable_spans` sets all eleven
+whether the recorder is on or off; :func:`enable_spans` sets all twelve
 back to 0.
 """
 from __future__ import annotations
@@ -87,6 +105,10 @@ _now = time.perf_counter_ns
 #: bytes ``api._host`` has copied to the host since :func:`enable_spans`
 #: last switched the recorder on (since import before that)
 HOST_BYTES = 0
+#: bytes the ``upload`` sites have copied from host arrays to the device
+#: (as the device holds them, after any conversion of dtype), counted
+#: alike, on every device
+UPLOAD_BYTES = 0
 #: ``api._host``'s fetches through page-locked memory, counted alike
 HOST_PINNED_FETCHES = 0
 #: pairs whose coherence maps ``coherence._wct_matrix_blocks`` computed,
@@ -115,12 +137,14 @@ MC_HIST_PLAIN_CELLS = 0
 def enable_spans() -> None:
     """Switch the span recorder on and clear its aggregates and the
     counters; a call while it is on does nothing."""
-    global _on, HOST_BYTES, HOST_PINNED_FETCHES, MATRIX_PAIRS, MATRIX_PAIR_BLOCKS
+    global _on, HOST_BYTES, UPLOAD_BYTES, HOST_PINNED_FETCHES, MATRIX_PAIRS
+    global MATRIX_PAIR_BLOCKS
     global MC_KERNEL_ROWS, MC_PLAIN_ROWS, MC_NULLS, MC_NULL_MEMBERS, MC_NULL_CHUNKS
     global MC_HIST_KERNEL_CELLS, MC_HIST_PLAIN_CELLS
     if _on:
         return
-    HOST_BYTES = HOST_PINNED_FETCHES = MATRIX_PAIRS = MATRIX_PAIR_BLOCKS = 0
+    HOST_BYTES = UPLOAD_BYTES = HOST_PINNED_FETCHES = 0
+    MATRIX_PAIRS = MATRIX_PAIR_BLOCKS = 0
     MC_KERNEL_ROWS = MC_PLAIN_ROWS = 0
     MC_NULLS = MC_NULL_MEMBERS = MC_NULL_CHUNKS = 0
     MC_HIST_KERNEL_CELLS = MC_HIST_PLAIN_CELLS = 0

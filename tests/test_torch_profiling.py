@@ -183,7 +183,9 @@ def test_build_all_finds_a_library_in_the_cache_without_nvcc(tmp_path, monkeypat
 # --------------------------------------------------------------------------
 
 #: mc_count 6 in chunks of 4: two chunks, each two generator calls, one
-#: histogram and one WCT core, beside the pair's own core
+#: histogram and one WCT core, beside the pair's own core; one grid, the
+#: pair's upload and the MC grid's, one span around both AR(1) fits, and
+#: the MC call's set-up, chunk loop and quantile readout once each
 MC = dict(mc_count=6, mc_batch=4, cache=False, progress=False, seed=3)
 #: spans a wct(sig=True) call takes on each CPU route: the default ("xla")
 #: runs cwt_batch and three smoothings a core; "planar" the f64 spectrum,
@@ -193,11 +195,15 @@ ROUTES = {
     "planar": {"spectrum": 6, "fused_cwt": 6, "smooth": 6},
 }
 COMMON = {"wct": 1, "fetch": 3, "wct.core": 3, "mc": 1, "mc.generate": 4,
-          "mc.histogram": 2}
+          "mc.histogram": 2, "grid": 1, "upload": 2, "ar1": 1, "mc.setup": 1,
+          "mc.chunks": 1, "mc.quantile": 1}
 #: (span, the span directly around it), on both routes and on each alone
 PARENTS = [("wct.core", "wct"), ("mc", "wct"), ("fetch", "wct"),
-           ("mc.generate", "mc"), ("mc.histogram", "mc"), ("wct.core", "mc"),
-           ("fetch", "mc"), ("smooth", "wct.core")]
+           ("grid", "wct"), ("upload", "wct"), ("ar1", "wct"),
+           ("mc.setup", "mc"), ("upload", "mc.setup"), ("mc.chunks", "mc"),
+           ("mc.generate", "mc.chunks"), ("mc.histogram", "mc.chunks"),
+           ("wct.core", "mc.chunks"), ("fetch", "mc"), ("mc.quantile", "mc"),
+           ("smooth", "wct.core")]
 ROUTE_PARENTS = {"xla": [("cwt_batch", "wct.core")],
                  "planar": [("spectrum", "wct.core"), ("fused_cwt", "wct.core")]}
 

@@ -194,7 +194,9 @@ def test_the_spans_hold_each_call():
         assert got[name]["count"] == 2, name
     assert got["fetch"]["count"] == 2 * 3
     top = got["wct_matrix_analysis"]
-    assert top["self_ns"] == _self_ns(got, "wct_matrix_analysis", ("wct_matrix", "mc.batch"))
+    assert got["ar1"]["count"] == 2
+    assert top["self_ns"] == _self_ns(got, "wct_matrix_analysis",
+                                      ("wct_matrix", "ar1", "mc.batch"))
     assert 0 < top["self_ns"] < top["total_ns"]
     assert 0 < got["mc.readout"]["total_ns"] < got["mc.batch"]["total_ns"]
     # the chunk takes all 6 members of each null (the bytes model fits far more)

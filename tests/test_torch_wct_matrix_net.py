@@ -107,7 +107,8 @@ def test_the_network_is_seeded_and_coherent_in_its_first_half():
 
 
 #: spans directly under ``wct_matrix`` a call
-UNDER = {"wct_matrix.fields": 1, "wct_matrix.pairs": 1, "fetch": 2}
+UNDER = {"grid": 1, "upload": 1, "wct_matrix.fields": 1, "wct_matrix.pairs": 1,
+         "fetch": 2}
 
 
 @pytest.mark.parametrize("engine", ["planar", "xla"])
