@@ -11,7 +11,8 @@ numpy, as in the JAX package.
 Grids come from ``transform._host_grid``.  ``cwt_power`` asks
 ``ops/fft._planar_route``; on the planar route it, ``cwt_analysis`` and
 ``xwt_planar`` run :func:`_cwt_planar_parts`: the grid, the kernels' one
-entry ``ops/fused_cwt._planar_cwt_of_real``, the trim.
+entry ``ops/fused_cwt._planar_cwt_of_real``, the COI while they run, the
+trim.
 """
 from __future__ import annotations
 
@@ -119,6 +120,13 @@ def cwt(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet", freqs=None,
     normalized one-sided signal spectrum.  The reference's data-dependent
     NaN-row drop is decided host-side from the mother's overflow criterion.
     """
+    out, g = _cwt_parts(signal, dt, dj, s0, J, wavelet, freqs, config, device)
+    return out + (g.ftfreqs[1 : g.nfft // 2] / (2 * np.pi),)
+
+
+def _cwt_parts(signal, dt, dj, s0, J, wavelet, freqs, config, device):
+    """:func:`cwt`'s ``(W, sj, freqs, coi, fft)`` and its host grid, whose
+    angular frequencies are built only where the caller reads them."""
     device = _resolve_device(device)
     mother = as_mother(wavelet)
     signal = np.asarray(signal)
@@ -131,16 +139,10 @@ def cwt(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet", freqs=None,
         sj = _upload(g.sj, device)
     W, signal_ft = cwt_batch(x, sj, dt, mother=mother, nfft=g.nfft,
                              config=config)
+    coi = g.coi     # built while the device runs
     W = _host(W[0])
     signal_ft = _host(signal_ft[0])
-    return (
-        W,
-        g.sj,
-        g.freqs,
-        g.coi,
-        signal_ft[1 : g.nfft // 2] / g.nfft ** 0.5,
-        g.ftfreqs[1 : g.nfft // 2] / (2 * np.pi),
-    )
+    return (W, g.sj, g.freqs, coi, signal_ft[1 : g.nfft // 2] / g.nfft ** 0.5), g
 
 
 def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
@@ -165,10 +167,11 @@ def _cwt_planar_parts(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
         sj = _upload(g.sj, device, torch.float32)
     out = _planar_cwt_of_real(x, sj, mother=mother, nfft=g.nfft, dt=dt,
                               precision=config.precision, output=output)
+    coi = g.coi     # built while the kernels run
     if output == "power":
-        return _host(out[:, :n0]), g.sj, g.freqs, g.coi
+        return _host(out[:, :n0]), g.sj, g.freqs, coi
     wr, wi = out
-    return _host(wr[:, :n0]), _host(wi[:, :n0]), g.sj, g.freqs, g.coi
+    return _host(wr[:, :n0]), _host(wi[:, :n0]), g.sj, g.freqs, coi
 
 
 @span("cwt_power")
@@ -192,9 +195,8 @@ def cwt_power(signal, dt, dj=1 / 12, s0=-1, J=-1, wavelet="morlet",
         return _cwt_planar_parts(signal, dt, dj=dj, s0=s0, J=J,
                                  wavelet=wavelet, freqs=freqs, config=config,
                                  output="power", device=device)
-    W, sj, out_freqs, coi, _, _ = cwt(signal, dt, dj=dj, s0=s0, J=J,
-                                      wavelet=wavelet, freqs=freqs,
-                                      config=config, device=device)
+    (W, sj, out_freqs, coi, _), _ = _cwt_parts(signal, dt, dj, s0, J, wavelet,
+                                               freqs, config, device)
     return np.abs(W) ** 2, sj, out_freqs, coi
 
 

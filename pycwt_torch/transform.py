@@ -14,12 +14,14 @@ given and rounded once to the compute dtype (``ops/fft._spectrum_f64``);
 ``"xla"`` and ``"mxu"`` take it in the compute dtype.
 
 Every surface builds its host grid in :func:`_host_grid`: scales, NaN-row
-drop, FFT length and COI, host numpy float64, before any device work.  The
+drop and FFT length, host numpy float64, before any device work; the COI
+and the angular frequencies are built on first read.  The
 planar route (``ops/fft._planar_route``) enters the kernels through
 ``ops/fused_cwt._planar_cwt_of_real`` alone.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -27,10 +29,11 @@ import numpy as np
 import torch
 
 from .config import DEFAULT, CWTConfig, round_half_even
-from .mothers import Mother, as_mother
+from .mothers import DOG, Morlet, Mother, as_mother
 from .ops.fft import (_spectrum_f64, fft_of_real_full, ifft as engine_ifft,
                       resolve_engine)
 from .ops.filterbank import angular_frequencies, apply_filter_bank
+from .utils import profiling
 from .utils.profiling import span
 
 __all__ = [
@@ -102,37 +105,70 @@ def _finite_rows(mother: Mother, sj, freqs, ftfreqs):
 
 
 def coi_bartlett(n0: int, dt: float, mother: Mother) -> np.ndarray:
-    """Cone of influence as Fourier periods: ``λ·coi·dt·(n0/2 − |t − (n0−1)/2|)``."""
-    tri = n0 / 2 - np.abs(np.arange(0, n0, dtype=np.float64) - (n0 - 1) / 2)
-    return mother.flambda() * mother.coi() * dt * tri
+    """Cone of influence as Fourier periods:
+    ``λ·coi·dt·(n0/2 − |t − (n0−1)/2|)``, built in place in one array by
+    that expression's operations in its order, so bit for bit the
+    expression."""
+    coi = np.arange(0, n0, dtype=np.float64)
+    coi -= (n0 - 1) / 2
+    np.abs(coi, out=coi)
+    np.subtract(n0 / 2, coi, out=coi)
+    coi *= mother.flambda() * mother.coi() * dt
+    return coi
 
 
-class _HostGrid(NamedTuple):
-    """A transform's host grid (numpy float64), from :func:`_host_grid`."""
+#: the mothers whose ``reference_nan_rows`` keeps every row whatever the
+#: frequencies, so their grid needs no angular-frequency array
+_ALL_ROWS_FINITE = (Morlet, DOG)
 
-    sj: np.ndarray        # (S,) scales left by the NaN-row drop
-    freqs: np.ndarray     # (S,) their Fourier-equivalent frequencies
-    nfft: int
-    coi: np.ndarray       # (n0,) Bartlett COI
-    ftfreqs: np.ndarray   # (nfft,) 2π·fftfreq(nfft, dt)
-    s0: float             # the scale grid's s0 and J, defaults resolved
-    J: int
+
+class _HostGrid:
+    """A transform's host grid (numpy float64), from :func:`_host_grid`.
+
+    ``coi`` and ``ftfreqs`` are built on first read: a caller reads ``coi``
+    once its device work is queued, so the host builds it while the card
+    runs, and ``ftfreqs`` is built only where a NaN-row check or a caller
+    reads it."""
+
+    def __init__(self, grid: ScaleGrid, nfft: int, n0: int, dt: float,
+                 mother: Mother):
+        self.sj = grid.sj        # (S,) scales left by the NaN-row drop
+        self.freqs = grid.freqs  # (S,) their Fourier-equivalent frequencies
+        self.nfft = nfft
+        self.s0 = grid.s0        # the scale grid's s0 and J, defaults resolved
+        self.J = grid.J
+        self._n0, self._dt, self._mother = n0, dt, mother
+
+    @functools.cached_property
+    def ftfreqs(self) -> np.ndarray:
+        """(nfft,) ``2π·fftfreq(nfft, dt)``, counted in
+        ``profiling.GRID_FTFREQ_ARRAYS``."""
+        profiling.GRID_FTFREQ_ARRAYS += 1
+        return 2 * np.pi * np.fft.fftfreq(self.nfft, self._dt)
+
+    @functools.cached_property
+    def coi(self) -> np.ndarray:
+        """(n0,) Bartlett COI (:func:`coi_bartlett`); the span ``coi``
+        holds its build."""
+        with span("coi"):
+            return coi_bartlett(self._n0, self._dt, self._mother)
 
 
 @span("grid")
 def _host_grid(n0: int, dt: float, dj: float, s0: float, J: int,
                mother: Mother, fft_length, freqs=None) -> _HostGrid:
     """The host grid of ``n0`` samples padded to ``fft_length(n0)``:
-    :func:`build_scale_grid`, the NaN-row drop on the one angular-frequency
-    array, and :func:`coi_bartlett`, in that order and in f64; the span
+    :func:`build_scale_grid`, then the NaN-row drop on the angular
+    frequencies where the mother's check reads them (not Morlet's or
+    DOG's), in f64; counted in ``profiling.HOST_GRIDS``, and the span
     ``grid`` holds it."""
     grid = build_scale_grid(n0, dt, dj=dj, s0=s0, J=J, mother=mother,
                             freqs=freqs)
-    nfft = fft_length(n0)
-    ftfreqs = 2 * np.pi * np.fft.fftfreq(nfft, dt)
-    sj, freqs = _finite_rows(mother, grid.sj, grid.freqs, ftfreqs)
-    return _HostGrid(sj, freqs, nfft, coi_bartlett(n0, dt, mother), ftfreqs,
-                     grid.s0, grid.J)
+    g = _HostGrid(grid, fft_length(n0), n0, dt, mother)
+    profiling.HOST_GRIDS += 1
+    if not isinstance(mother, _ALL_ROWS_FINITE):
+        g.sj, g.freqs = _finite_rows(mother, g.sj, g.freqs, g.ftfreqs)
+    return g
 
 
 @span("cwt_batch")

@@ -12,7 +12,12 @@ each name's count, total and self nanoseconds.
 
 * ``wct``: ``coherence.wct``, the whole call (API);
 * ``grid``: ``transform._host_grid``, every surface's one host grid: the
-  scales, ``2π·fftfreq(nfft)``, the NaN-row drop and the COI (API);
+  scales and, for a mother whose NaN-row check reads them (Paul),
+  ``2π·fftfreq(nfft)`` and the NaN-row drop (API);
+* ``coi``: the grid's COI, built on its first read (``_HostGrid.coi``):
+  in ``api.cwt`` and ``api._cwt_planar_parts`` once the kernels are
+  queued and before the ``fetch``, elsewhere where the surface returns it
+  (API);
 * ``upload``: the host→device copies of the caller's data and grids, one
   block a site group: ``api.cwt``, ``api._cwt_planar_parts``,
   ``coherence.wct``, ``wct_matrix``, ``wct_significance`` (with the key)
@@ -53,8 +58,10 @@ each name's count, total and self nanoseconds.
 No span synchronizes the device: a span's time is the host's, and a
 ``fetch`` holds the wait for the device's queue.
 
-Beside the recorder, :data:`HOST_BYTES` counts the bytes that
-``api._host`` has copied to the host, :data:`HOST_PINNED_FETCHES` those
+Beside the recorder, :data:`HOST_GRIDS` counts the grids that
+``transform._host_grid`` built and :data:`GRID_FTFREQ_ARRAYS` the (nfft,)
+angular-frequency arrays built for them, :data:`HOST_BYTES` the bytes
+that ``api._host`` has copied to the host, :data:`HOST_PINNED_FETCHES` those
 of its fetches that went through page-locked memory, :data:`UPLOAD_BYTES`
 the bytes that the ``upload`` sites have copied to the device, and
 :data:`MATRIX_PAIRS` and :data:`MATRIX_PAIR_BLOCKS` the pairs whose maps
@@ -67,8 +74,8 @@ surrogate rows drawn on the card by the generator kernel
 for them and the chunks it ran, and :data:`MC_HIST_KERNEL_CELLS` and
 :data:`MC_HIST_PLAIN_CELLS` the points of the Monte-Carlo chunks' fields
 binned by the counts kernel (``ops/mc_hist.py``) and by the torch path,
-whether the recorder is on or off; :func:`enable_spans` sets all twelve
-back to 0.
+whether the recorder is on or off; :func:`enable_spans` sets all
+fourteen back to 0.
 """
 from __future__ import annotations
 
@@ -102,6 +109,11 @@ _totals: dict = {}
 _profiled: dict = {}
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _now = time.perf_counter_ns
+#: grids ``transform._host_grid`` built, and the (nfft,) arrays
+#: 2π·fftfreq(nfft, dt) built for them (``_HostGrid.ftfreqs``), counted
+#: whether the recorder is on or off
+HOST_GRIDS = 0
+GRID_FTFREQ_ARRAYS = 0
 #: bytes ``api._host`` has copied to the host since :func:`enable_spans`
 #: last switched the recorder on (since import before that)
 HOST_BYTES = 0
@@ -140,9 +152,10 @@ def enable_spans() -> None:
     global _on, HOST_BYTES, UPLOAD_BYTES, HOST_PINNED_FETCHES, MATRIX_PAIRS
     global MATRIX_PAIR_BLOCKS
     global MC_KERNEL_ROWS, MC_PLAIN_ROWS, MC_NULLS, MC_NULL_MEMBERS, MC_NULL_CHUNKS
-    global MC_HIST_KERNEL_CELLS, MC_HIST_PLAIN_CELLS
+    global MC_HIST_KERNEL_CELLS, MC_HIST_PLAIN_CELLS, HOST_GRIDS, GRID_FTFREQ_ARRAYS
     if _on:
         return
+    HOST_GRIDS = GRID_FTFREQ_ARRAYS = 0
     HOST_BYTES = UPLOAD_BYTES = HOST_PINNED_FETCHES = 0
     MATRIX_PAIRS = MATRIX_PAIR_BLOCKS = 0
     MC_KERNEL_ROWS = MC_PLAIN_ROWS = 0

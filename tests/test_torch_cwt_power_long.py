@@ -116,8 +116,8 @@ def test_the_byte_counter_counts_the_power():
 #: the spans directly under ``cwt_power``, a call, on each CPU route: the
 #: host grid and the upload of the record and its scales besides the layers
 UNDER = {"planar": {"grid": 1, "upload": 1, "spectrum": 1, "fused_cwt": 1,
-                    "fetch": 1},
-         "xla": {"grid": 1, "upload": 1, "cwt_batch": 1, "fetch": 2}}
+                    "coi": 1, "fetch": 1},
+         "xla": {"grid": 1, "upload": 1, "cwt_batch": 1, "coi": 1, "fetch": 2}}
 
 
 @pytest.mark.parametrize("engine", sorted(UNDER))

@@ -118,7 +118,7 @@ def test_wct_without_the_null_spans_its_grid_and_upload(route):
         {"wct": 2, "grid": 2, "upload": 2}
     row = got["wct"]
     assert row["self_ns"] == _direct_self(got, "wct", ("grid", "upload", "wct.core",
-                                                       "fetch"))
+                                                       "fetch", "coi"))
     assert 0 < row["self_ns"] < row["total_ns"]
 
 

@@ -1,12 +1,13 @@
-"""The card twin of ``test_torch_host_spans.py``: on the card's default
-route (the planar route, the CUDA kernels, the generator and counts
-kernels), the spans ``grid``, ``upload``, ``ar1``, ``mc.setup``,
-``mc.chunks`` and ``mc.quantile`` a call of ``cwt_power``, ``wct`` with its
-Monte-Carlo null and ``wct_matrix_analysis``; the bytes that
-``profiling.UPLOAD_BYTES`` counts; and the answers, bit for bit the same
-with the recorder off and on.  It needs an NVIDIA card, so it skips where
-there is none; ``python -m pytest --noconftest
-tests/test_torch_host_spans_cuda.py`` on the card runs it."""
+"""The card twin of ``test_torch_host_spans.py``: on the card's default route
+(the planar route, the CUDA kernels, the generator and counts kernels), the
+spans ``grid``, ``upload``, ``ar1``, ``mc.setup``, ``mc.chunks`` and
+``mc.quantile`` a call of ``cwt_power``, ``wct`` with its Monte-Carlo null
+and ``wct_matrix_analysis``; the bytes that ``profiling.UPLOAD_BYTES``
+counts; the answers, bit for bit the same with the recorder off and on; and
+``cwt_power``'s COI at 10^6 samples, built between the kernels' enqueue and
+the fetch. It needs an NVIDIA card, so it skips where there is none;
+``python -m pytest --noconftest tests/test_torch_host_spans_cuda.py`` on
+the card runs it."""
 import numpy as np
 import pytest
 import torch
@@ -15,7 +16,8 @@ import pycwt_torch as pt
 from pycwt_torch import coherence
 from pycwt_torch.analysis import wct_matrix_analysis
 from pycwt_torch.config import CWTConfig
-from pycwt_torch.transform import _host_grid
+from pycwt_torch.ops.fused_cwt import _planar_cwt_of_real
+from pycwt_torch.transform import _finite_rows, _host_grid, build_scale_grid
 from pycwt_torch.utils import profiling
 
 MC = dict(mc_count=24, cache=False, progress=False, seed=3)
@@ -77,8 +79,50 @@ def test_cwt_power_spans_and_bytes(cuda):
     assert profiling.UPLOAD_BYTES == len(x) * 8 + len(g.sj) * 4
     got = profiling.span_summary()
     row = got["cwt_power"]
-    children = ("grid", "upload", "spectrum", "fused_cwt", "fetch")
+    children = ("grid", "upload", "spectrum", "fused_cwt", "coi", "fetch")
     assert row["self_ns"] == row["total_ns"] - sum(got[k]["total_ns"] for k in children)
+
+
+def _old_grid(n0, dt, mother):
+    """The grid's scales, frequencies and COI as they were built with the
+    full angular-frequency array and the COI as one expression."""
+    grid = build_scale_grid(n0, dt, mother=mother)
+    sj, freqs = _finite_rows(mother, grid.sj, grid.freqs,
+                             2 * np.pi * np.fft.fftfreq(CWTConfig().fft_length(n0), dt))
+    tri = n0 / 2 - np.abs(np.arange(0, n0, dtype=np.float64) - (n0 - 1) / 2)
+    return sj, freqs, mother.flambda() * mother.coi() * dt * tri
+
+
+def test_cwt_power_builds_the_coi_while_the_kernels_run(cuda):
+    """At 10^6 samples the span ``coi`` opens after ``fused_cwt`` has
+    queued the kernels and closes before ``fetch`` opens; no angular-
+    frequency array is built; ``(power, sj, freqs, coi)`` equal the old
+    grid's formulas and the kernels' power on that grid bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _record(1_000_000)
+    pt.cwt_power(x, 1.0)                    # the build and the pool, warm
+    profiling.enable_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        power, sj, freqs, coi = pt.cwt_power(x, 1.0)
+    assert (profiling.HOST_GRIDS, profiling.GRID_FTFREQ_ARRAYS) == (1, 0)
+    spans = {}
+    for e in prof.events():
+        if e.is_user_annotation and e.device_type == torch.autograd.DeviceType.CPU:
+            spans.setdefault(e.name, []).append(e.time_range)
+    (c,) = spans["coi"]
+    (k,) = spans["fused_cwt"]
+    (f,) = spans["fetch"]
+    assert k.end <= c.start and c.end <= f.start
+    want = _old_grid(len(x), 1.0, pt.Morlet(6))
+    for got, ref in zip((sj, freqs, coi), want):
+        np.testing.assert_array_equal(got, ref)
+    xs = torch.as_tensor(x, dtype=torch.float64, device=cuda)
+    ref = _planar_cwt_of_real(xs, torch.as_tensor(want[0], dtype=torch.float32,
+                                                  device=cuda),
+                              mother=pt.Morlet(6), nfft=2 ** 20, dt=1.0,
+                              precision=CWTConfig().precision, output="power")
+    np.testing.assert_array_equal(power, ref[:, :len(x)].cpu().numpy())
 
 
 def test_wct_with_the_null_spans_and_bytes(cuda):

@@ -196,10 +196,10 @@ ROUTES = {
 }
 COMMON = {"wct": 1, "fetch": 3, "wct.core": 3, "mc": 1, "mc.generate": 4,
           "mc.histogram": 2, "grid": 1, "upload": 2, "ar1": 1, "mc.setup": 1,
-          "mc.chunks": 1, "mc.quantile": 1}
+          "mc.chunks": 1, "mc.quantile": 1, "coi": 1}
 #: (span, the span directly around it), on both routes and on each alone
 PARENTS = [("wct.core", "wct"), ("mc", "wct"), ("fetch", "wct"),
-           ("grid", "wct"), ("upload", "wct"), ("ar1", "wct"),
+           ("grid", "wct"), ("upload", "wct"), ("ar1", "wct"), ("coi", "wct"),
            ("mc.setup", "mc"), ("upload", "mc.setup"), ("mc.chunks", "mc"),
            ("mc.generate", "mc.chunks"), ("mc.histogram", "mc.chunks"),
            ("wct.core", "mc.chunks"), ("fetch", "mc"), ("mc.quantile", "mc"),

@@ -108,13 +108,13 @@ def test_the_network_is_seeded_and_coherent_in_its_first_half():
 
 #: spans directly under ``wct_matrix`` a call
 UNDER = {"grid": 1, "upload": 1, "wct_matrix.fields": 1, "wct_matrix.pairs": 1,
-         "fetch": 2}
+         "fetch": 2, "coi": 1}
 
 
 @pytest.mark.parametrize("engine", ["planar", "xla"])
 def test_the_spans_hold_the_call(engine):
-    """``wct_matrix`` once a call, its fields, its pair loop and the two
-    fetches once each under it (the layers below them, ``spectrum``,
+    """``wct_matrix`` once a call, its fields, its pair loop, the COI and
+    the two fetches once each under it (the layers below them, ``spectrum``,
     ``fused_cwt``, ``smooth``, nest inside): its self time is its total less
     theirs; ``MATRIX_PAIRS`` rises by the 15 pairs a call."""
     y = _stations()
