@@ -22,6 +22,19 @@ signal the planar surfaces' chunk transforms are ``fft_of_real_planar`` →
 a chunk and signal.  :func:`streamed_global_power` and its planar variant
 keep only the ``(S,)`` accumulator of Σ_t |W|², independent of N.
 
+Each single-device surface is one span of the recorder
+(``utils/profiling.py``): ``wct_overlap`` for :func:`wct_overlap_planar`,
+the function's own name for the others; inside it ``upload`` holds the
+host→device copies of the signals and scales (their bytes in
+``profiling.UPLOAD_BYTES``) and ``overlap.chunks`` the chunk loop, whose
+own time is the host's enqueue of the chunks' work.  Each chunk of the
+loop (not the one global transform of a signal no longer than a chunk)
+adds 1 to ``profiling.OVERLAP_CHUNKS``, ``S·nfft_c`` a signal to
+``OVERLAP_POINTS`` and ``S`` × its interior samples kept (the last
+chunk's zero tail left out) a signal to ``OVERLAP_INTERIOR_POINTS``:
+their ratio is the share of the transformed points the output keeps,
+``chunk / nfft_c`` with ``nfft_c = pow2(chunk + 2·halo)``.
+
 **Near-Nyquist caveat.** For scales where the mother's spectrum is still
 large at the Nyquist frequency (Morlet-6 at the TC98 default smallest scale
 ``s0 = 2dt/λ`` has ψ̂(s·π/dt) ≈ 0.96), the frequency-truncated filter's
@@ -49,6 +62,8 @@ import torch
 from ..config import next_pow2
 from ..mothers import Mother
 from ..transform import cwt_batch
+from ..utils import profiling
+from ..utils.profiling import span
 from .fused_cwt import _planar_cwt_of_real
 
 __all__ = [
@@ -121,6 +136,29 @@ def _on_device(x, device, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
+def _uploaded(dtype: torch.dtype, device, first, *rest) -> list:
+    """``first`` and ``rest`` as ``dtype`` tensors on one device
+    (:func:`_on_device`: ``first``'s own, else ``device``), in one span
+    ``upload``; each that was not a tensor already there adds its bytes,
+    as the device holds them, to ``profiling.UPLOAD_BYTES``."""
+    with span("upload"):
+        out = [_on_device(first, device, dtype)]
+        out += [_on_device(a, out[0].device, dtype) for a in rest]
+    for a, t in zip((first, *rest), out):
+        if not (isinstance(a, torch.Tensor) and a.device == t.device):
+            profiling.UPLOAD_BYTES += t.numel() * t.element_size()
+    return out
+
+
+def _count_chunk(S: int, nfft: int, kept: int, signals: int) -> None:
+    """One chunk's counters, counted whether the recorder is on or off:
+    ``S·nfft`` transformed points and ``S·kept`` interior points for each
+    of ``signals`` signals."""
+    profiling.OVERLAP_CHUNKS += 1
+    profiling.OVERLAP_POINTS += signals * S * nfft
+    profiling.OVERLAP_INTERIOR_POINTS += signals * S * kept
+
+
 def _pad_for_chunks(signal: torch.Tensor, chunk: int, H: int):
     N = signal.shape[-1]
     n_chunks = (N + chunk - 1) // chunk
@@ -147,23 +185,26 @@ def cwt_overlap_save(signal, scales, dt: float, *, mother: Mother,
     transform.
     """
     rdt = torch.get_default_dtype()
-    H = _halo(scales, dt, mother, eps, chunk=chunk)
-    x = _on_device(signal, device, rdt)
-    sc = torch.as_tensor(scales).to(device=x.device, dtype=rdt)
-    kw = dict(mother=mother, engine=engine)
-    N = x.shape[-1]
-    if N <= chunk:
-        W, _ = cwt_batch(x[None], sc, dt, nfft=next_pow2(N), **kw)
-        return W[0]
-    padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
-    nfft = next_pow2(chunk + 2 * H)
-    out = None
-    for i in range(n_chunks):
-        W, _ = cwt_batch(_slab(padded, i, chunk, H)[None], sc, dt, nfft=nfft, **kw)
-        if out is None:
-            out = W.new_empty((W.shape[1], n_chunks * chunk))
-        out[:, i * chunk:(i + 1) * chunk] = W[0, :, H:H + chunk]
-    return out[:, :N]
+    with span("cwt_overlap_save"):
+        H = _halo(scales, dt, mother, eps, chunk=chunk)
+        x, sc = _uploaded(rdt, device, signal, scales)
+        kw = dict(mother=mother, engine=engine)
+        N = x.shape[-1]
+        if N <= chunk:
+            W, _ = cwt_batch(x[None], sc, dt, nfft=next_pow2(N), **kw)
+            return W[0]
+        padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
+        nfft = next_pow2(chunk + 2 * H)
+        out = None
+        with span("overlap.chunks"):
+            for i in range(n_chunks):
+                W, _ = cwt_batch(_slab(padded, i, chunk, H)[None], sc, dt, nfft=nfft,
+                                 **kw)
+                if out is None:
+                    out = W.new_empty((W.shape[1], n_chunks * chunk))
+                out[:, i * chunk:(i + 1) * chunk] = W[0, :, H:H + chunk]
+                _count_chunk(sc.shape[0], nfft, min(chunk, N - i * chunk), 1)
+        return out[:, :N]
 
 
 def streamed_global_power(signal, scales, dt: float, *, mother: Mother,
@@ -173,18 +214,21 @@ def streamed_global_power(signal, scales, dt: float, *, mother: Mother,
     independent of N (the TC98 eq. 22 numerator without the transform).
     Returns ``(S,)`` real; divide by N for the mean."""
     rdt = torch.get_default_dtype()
-    H = _halo(scales, dt, mother, eps)
-    x = _on_device(signal, device, rdt)
-    sc = torch.as_tensor(scales).to(device=x.device, dtype=rdt)
-    padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
-    nfft = next_pow2(chunk + 2 * H)
-    acc = torch.zeros(sc.shape[0], dtype=rdt, device=x.device)
-    for i in range(n_chunks):
-        W, _ = cwt_batch(_slab(padded, i, chunk, H)[None], sc, dt, mother=mother,
-                         nfft=nfft, engine=engine)
-        # the zero-pad tail of the last chunk stays out of the sum
-        acc += (W[0, :, H:H + min(chunk, N - i * chunk)].abs() ** 2).sum(-1)
-    return acc
+    with span("streamed_global_power"):
+        H = _halo(scales, dt, mother, eps)
+        x, sc = _uploaded(rdt, device, signal, scales)
+        padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
+        nfft = next_pow2(chunk + 2 * H)
+        acc = torch.zeros(sc.shape[0], dtype=rdt, device=x.device)
+        with span("overlap.chunks"):
+            for i in range(n_chunks):
+                W, _ = cwt_batch(_slab(padded, i, chunk, H)[None], sc, dt,
+                                 mother=mother, nfft=nfft, engine=engine)
+                # the zero-pad tail of the last chunk stays out of the sum
+                kept = min(chunk, N - i * chunk)
+                acc += (W[0, :, H:H + kept].abs() ** 2).sum(-1)
+                _count_chunk(sc.shape[0], nfft, kept, 1)
+        return acc
 
 
 def _slab_checks(N: int, n_dev: int, chunk: int, H: int, pad_hint: str = "") -> int:
@@ -269,24 +313,27 @@ def cwt_overlap_save_planar(signal, scales, dt: float, *, mother: Mother,
     ``fft_of_real_planar`` → ``fused_cwt_planar`` (the kernels on the
     card), and the output is the planar pair ``(wr, wi)``, each ``(S, N)``
     float32.  Same halo contract and near-Nyquist caveat."""
-    H = _halo(scales, dt, mother, eps, chunk=chunk)
-    x = _on_device(signal, device, torch.float32)
-    sc = torch.as_tensor(scales).to(device=x.device, dtype=torch.float32)
-    kw = dict(mother=mother, dt=dt, precision=precision)
-    N = x.shape[-1]
-    if N <= chunk:
-        wr, wi = _planar_cwt_of_real(x, sc, nfft=next_pow2(N), **kw)
-        return wr[:, :N], wi[:, :N]
-    padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
-    nfft = next_pow2(chunk + 2 * H)
-    cr = torch.empty((sc.shape[0], n_chunks * chunk), dtype=torch.float32,
-                     device=x.device)
-    ci = torch.empty_like(cr)
-    for i in range(n_chunks):
-        wr, wi = _planar_cwt_of_real(_slab(padded, i, chunk, H), sc, nfft=nfft, **kw)
-        cr[:, i * chunk:(i + 1) * chunk] = wr[:, H:H + chunk]
-        ci[:, i * chunk:(i + 1) * chunk] = wi[:, H:H + chunk]
-    return cr[:, :N], ci[:, :N]
+    with span("cwt_overlap_save_planar"):
+        H = _halo(scales, dt, mother, eps, chunk=chunk)
+        x, sc = _uploaded(torch.float32, device, signal, scales)
+        kw = dict(mother=mother, dt=dt, precision=precision)
+        N = x.shape[-1]
+        if N <= chunk:
+            wr, wi = _planar_cwt_of_real(x, sc, nfft=next_pow2(N), **kw)
+            return wr[:, :N], wi[:, :N]
+        padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
+        nfft = next_pow2(chunk + 2 * H)
+        cr = torch.empty((sc.shape[0], n_chunks * chunk), dtype=torch.float32,
+                         device=x.device)
+        ci = torch.empty_like(cr)
+        with span("overlap.chunks"):
+            for i in range(n_chunks):
+                wr, wi = _planar_cwt_of_real(_slab(padded, i, chunk, H), sc,
+                                             nfft=nfft, **kw)
+                cr[:, i * chunk:(i + 1) * chunk] = wr[:, H:H + chunk]
+                ci[:, i * chunk:(i + 1) * chunk] = wi[:, H:H + chunk]
+                _count_chunk(sc.shape[0], nfft, min(chunk, N - i * chunk), 1)
+        return cr[:, :N], ci[:, :N]
 
 
 def streamed_global_power_planar(signal, scales, dt: float, *,
@@ -296,25 +343,28 @@ def streamed_global_power_planar(signal, scales, dt: float, *,
     """:func:`streamed_global_power` on f32 planes: each chunk's |W|² comes
     from the kernels' ``power`` epilogue and only the running ``(S,)``
     accumulator survives a chunk."""
-    H = _halo(scales, dt, mother, eps)
-    x = _on_device(signal, device, torch.float32)
-    sc = torch.as_tensor(scales).to(device=x.device, dtype=torch.float32)
-    padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
-    nfft = next_pow2(chunk + 2 * H)
-    acc = torch.zeros(sc.shape[0], dtype=torch.float32, device=x.device)
-    for i in range(n_chunks):
-        pw = _planar_cwt_of_real(_slab(padded, i, chunk, H), sc, mother=mother,
-                                 nfft=nfft, dt=dt, precision=precision,
-                                 output="power")
-        acc += pw[:, H:H + min(chunk, N - i * chunk)].sum(-1)
-    return acc
+    with span("streamed_global_power_planar"):
+        H = _halo(scales, dt, mother, eps)
+        x, sc = _uploaded(torch.float32, device, signal, scales)
+        padded, N, n_chunks = _pad_for_chunks(x, chunk, H)
+        nfft = next_pow2(chunk + 2 * H)
+        acc = torch.zeros(sc.shape[0], dtype=torch.float32, device=x.device)
+        with span("overlap.chunks"):
+            for i in range(n_chunks):
+                pw = _planar_cwt_of_real(_slab(padded, i, chunk, H), sc,
+                                         mother=mother, nfft=nfft, dt=dt,
+                                         precision=precision, output="power")
+                kept = min(chunk, N - i * chunk)
+                acc += pw[:, H:H + kept].sum(-1)
+                _count_chunk(sc.shape[0], nfft, kept, 1)
+        return acc
 
 
-def _signal_pair(y1, y2, device, normalize: bool, name: str):
-    """Two matching 1-D f32 signals on one device, each normalized there
-    (population std, as numpy's) when ``normalize``."""
-    y1 = _on_device(y1, device, torch.float32)
-    y2 = _on_device(y2, y1.device, torch.float32)
+def _signal_pair(y1, y2, scales, device, normalize: bool, name: str):
+    """Two matching 1-D f32 signals and the f32 scales on one device
+    (:func:`_uploaded`), each signal normalized there (population std, as
+    numpy's) when ``normalize``."""
+    y1, y2, sc = _uploaded(torch.float32, device, y1, y2, scales)
     if y1.shape != y2.shape or y1.ndim != 1:
         raise ValueError(
             f"{name} expects matching 1-D signals, got {tuple(y1.shape)} vs "
@@ -322,7 +372,7 @@ def _signal_pair(y1, y2, device, normalize: bool, name: str):
     if normalize:
         y1 = (y1 - y1.mean()) / y1.std(correction=0)
         y2 = (y2 - y2.mean()) / y2.std(correction=0)
-    return y1, y2
+    return y1, y2, sc
 
 
 def _wct_chunk_pipeline(slab1, slab2, scales, mother: Mother, nfft: int,
@@ -364,21 +414,25 @@ def wct_overlap_planar(y1, y2, scales, dt: float, *, mother: Mother,
     if smooth_precision not in (None, "high"):
         raise ValueError(
             f"smooth_precision must be None or 'high', got {smooth_precision!r}")
-    H = _halo(scales, dt, mother, eps, factor=2, chunk=chunk)
-    y1, y2 = _signal_pair(y1, y2, device, normalize, "wct_overlap_planar")
-    sc = torch.as_tensor(scales).to(device=y1.device, dtype=torch.float32)
-    p1, N, n_chunks = _pad_for_chunks(y1, chunk, H)
-    p2, _, _ = _pad_for_chunks(y2, chunk, H)
-    nfft = next_pow2(chunk + 2 * H)
-    cR = torch.empty((sc.shape[0], n_chunks * chunk), dtype=torch.float32,
-                     device=y1.device)
-    cA = torch.empty_like(cR)
-    for i in range(n_chunks):
-        R, A = _wct_chunk_pipeline(_slab(p1, i, chunk, H), _slab(p2, i, chunk, H),
-                                   sc, mother, nfft, dt, dj, precision)
-        cR[:, i * chunk:(i + 1) * chunk] = R[:, H:H + chunk]
-        cA[:, i * chunk:(i + 1) * chunk] = A[:, H:H + chunk]
-    return cR[:, :N], cA[:, :N]
+    with span("wct_overlap"):
+        H = _halo(scales, dt, mother, eps, factor=2, chunk=chunk)
+        y1, y2, sc = _signal_pair(y1, y2, scales, device, normalize,
+                                  "wct_overlap_planar")
+        p1, N, n_chunks = _pad_for_chunks(y1, chunk, H)
+        p2, _, _ = _pad_for_chunks(y2, chunk, H)
+        nfft = next_pow2(chunk + 2 * H)
+        cR = torch.empty((sc.shape[0], n_chunks * chunk), dtype=torch.float32,
+                         device=y1.device)
+        cA = torch.empty_like(cR)
+        with span("overlap.chunks"):
+            for i in range(n_chunks):
+                R, A = _wct_chunk_pipeline(_slab(p1, i, chunk, H),
+                                           _slab(p2, i, chunk, H),
+                                           sc, mother, nfft, dt, dj, precision)
+                cR[:, i * chunk:(i + 1) * chunk] = R[:, H:H + chunk]
+                cA[:, i * chunk:(i + 1) * chunk] = A[:, H:H + chunk]
+                _count_chunk(sc.shape[0], nfft, min(chunk, N - i * chunk), 2)
+        return cR[:, :N], cA[:, :N]
 
 
 def sharded_wct_overlap_planar(mesh, y1, y2, scales, dt: float, *,
@@ -407,9 +461,8 @@ def sharded_wct_overlap_planar(mesh, y1, y2, scales, dt: float, *,
         raise ValueError(
             f"smooth_precision must be None or 'high', got {smooth_precision!r}")
     H = _halo(scales, dt, mother, eps, factor=2, chunk=chunk)
-    y1, y2 = _signal_pair(y1, y2, mesh_device(mesh), normalize,
-                          "sharded_wct_overlap_planar")
-    sc = torch.as_tensor(scales).to(device=y1.device, dtype=torch.float32)
+    y1, y2, sc = _signal_pair(y1, y2, scales, mesh_device(mesh), normalize,
+                              "sharded_wct_overlap_planar")
     N_loc = _slab_checks(y1.shape[-1], axis_size(mesh, axis_name), chunk, H)
     padded = _with_halo(block(torch.stack([y1, y2]), mesh, axis_name, 1), mesh,
                         axis_name, H)
@@ -436,23 +489,26 @@ def xwt_overlap_planar(y1, y2, scales, dt: float, *, mother: Mother,
     interior and near-Nyquist contract.  The theoretical XWT significance
     is a per-grid curve of the fitted AR(1) coefficients
     (:func:`pycwt_torch.stats.ar1`, ``ar1_spectrum``)."""
-    H = _halo(scales, dt, mother, eps, chunk=chunk)
-    y1, y2 = _signal_pair(y1, y2, device, normalize, "xwt_overlap_planar")
-    sc = torch.as_tensor(scales).to(device=y1.device, dtype=torch.float32)
-    p1, N, n_chunks = _pad_for_chunks(y1, chunk, H)
-    p2, _, _ = _pad_for_chunks(y2, chunk, H)
-    nfft = next_pow2(chunk + 2 * H)
-    kw = dict(mother=mother, nfft=nfft, dt=dt, precision=precision)
-    cM = torch.empty((sc.shape[0], n_chunks * chunk), dtype=torch.float32,
-                     device=y1.device)
-    cA = torch.empty_like(cM)
-    for i in range(n_chunks):
-        w1r, w1i = (w[:, H:H + chunk] for w in
-                    _planar_cwt_of_real(_slab(p1, i, chunk, H), sc, **kw))
-        w2r, w2i = (w[:, H:H + chunk] for w in
-                    _planar_cwt_of_real(_slab(p2, i, chunk, H), sc, **kw))
-        w12r = w1r * w2r + w1i * w2i          # W1 · conj(W2), planar
-        w12i = w1i * w2r - w1r * w2i
-        cM[:, i * chunk:(i + 1) * chunk] = torch.sqrt(w12r ** 2 + w12i ** 2)
-        cA[:, i * chunk:(i + 1) * chunk] = torch.atan2(w12i, w12r)
-    return cM[:, :N], cA[:, :N]
+    with span("xwt_overlap_planar"):
+        H = _halo(scales, dt, mother, eps, chunk=chunk)
+        y1, y2, sc = _signal_pair(y1, y2, scales, device, normalize,
+                                  "xwt_overlap_planar")
+        p1, N, n_chunks = _pad_for_chunks(y1, chunk, H)
+        p2, _, _ = _pad_for_chunks(y2, chunk, H)
+        nfft = next_pow2(chunk + 2 * H)
+        kw = dict(mother=mother, nfft=nfft, dt=dt, precision=precision)
+        cM = torch.empty((sc.shape[0], n_chunks * chunk), dtype=torch.float32,
+                         device=y1.device)
+        cA = torch.empty_like(cM)
+        with span("overlap.chunks"):
+            for i in range(n_chunks):
+                w1r, w1i = (w[:, H:H + chunk] for w in
+                            _planar_cwt_of_real(_slab(p1, i, chunk, H), sc, **kw))
+                w2r, w2i = (w[:, H:H + chunk] for w in
+                            _planar_cwt_of_real(_slab(p2, i, chunk, H), sc, **kw))
+                w12r = w1r * w2r + w1i * w2i          # W1 · conj(W2), planar
+                w12i = w1i * w2r - w1r * w2i
+                cM[:, i * chunk:(i + 1) * chunk] = torch.sqrt(w12r ** 2 + w12i ** 2)
+                cA[:, i * chunk:(i + 1) * chunk] = torch.atan2(w12i, w12r)
+                _count_chunk(sc.shape[0], nfft, min(chunk, N - i * chunk), 2)
+        return cM[:, :N], cA[:, :N]

@@ -22,8 +22,9 @@ each name's count, total and self nanoseconds.
   block a site group: ``api.cwt``, ``api._cwt_planar_parts``,
   ``coherence.wct``, ``wct_matrix``, ``wct_significance`` (with the key)
   and ``wct_significance_batch`` (the grid and key, then each block's
-  coefficients); a copy from pageable memory waits for the device's
-  queue (API, host upload);
+  coefficients), and ``ops.overlap``'s single-device surfaces and
+  ``sharded_wct_overlap_planar`` (the signals and scales); a copy from
+  pageable memory waits for the device's queue (API, host upload);
 * ``ar1``: the AR(1) fits on the host, ``stats.ar1`` twice in
   ``coherence.wct`` and ``stats.ar1_batch`` in
   ``analysis.wct_matrix_analysis`` (API);
@@ -53,7 +54,14 @@ each name's count, total and self nanoseconds.
   self-smoothings in ``coherence._wct_matrix_blocks``, and
   ``wct_matrix.pairs``: its loop over the blocks of pairs (WCT pairs);
 * ``wct_matrix_analysis``: ``analysis.wct_matrix_analysis``, the whole
-  call (API).
+  call (API);
+* ``wct_overlap``: ``ops.overlap.wct_overlap_planar``, the whole call, and
+  ``cwt_overlap_save``, ``cwt_overlap_save_planar``,
+  ``streamed_global_power``, ``streamed_global_power_planar``,
+  ``xwt_overlap_planar``: the other single-device overlap-save surfaces,
+  each its whole call (API, long records); ``overlap.chunks``: the chunk
+  loop of each, so its own time is the host's enqueue of the chunks'
+  work (overlap-save).
 
 No span synchronizes the device: a span's time is the host's, and a
 ``fetch`` holds the wait for the device's queue.
@@ -74,8 +82,11 @@ surrogate rows drawn on the card by the generator kernel
 for them and the chunks it ran, and :data:`MC_HIST_KERNEL_CELLS` and
 :data:`MC_HIST_PLAIN_CELLS` the points of the Monte-Carlo chunks' fields
 binned by the counts kernel (``ops/mc_hist.py``) and by the torch path,
-whether the recorder is on or off; :func:`enable_spans` sets all
-fourteen back to 0.
+and :data:`OVERLAP_CHUNKS`, :data:`OVERLAP_POINTS` and
+:data:`OVERLAP_INTERIOR_POINTS` the chunks that ``ops.overlap``'s
+single-device surfaces ran, the points they transformed and those they
+kept, whether the recorder is on or off; :func:`enable_spans` sets all
+seventeen back to 0.
 """
 from __future__ import annotations
 
@@ -144,6 +155,13 @@ MC_NULL_CHUNKS = 0
 #: alike
 MC_HIST_KERNEL_CELLS = 0
 MC_HIST_PLAIN_CELLS = 0
+#: chunks that ``ops.overlap``'s single-device surfaces ran, S × nfft_c
+#: points transformed for each chunk and signal, and S × the interior
+#: samples kept for each (the last chunk's zero tail left out), counted
+#: alike
+OVERLAP_CHUNKS = 0
+OVERLAP_POINTS = 0
+OVERLAP_INTERIOR_POINTS = 0
 
 
 def enable_spans() -> None:
@@ -153,6 +171,7 @@ def enable_spans() -> None:
     global MATRIX_PAIR_BLOCKS
     global MC_KERNEL_ROWS, MC_PLAIN_ROWS, MC_NULLS, MC_NULL_MEMBERS, MC_NULL_CHUNKS
     global MC_HIST_KERNEL_CELLS, MC_HIST_PLAIN_CELLS, HOST_GRIDS, GRID_FTFREQ_ARRAYS
+    global OVERLAP_CHUNKS, OVERLAP_POINTS, OVERLAP_INTERIOR_POINTS
     if _on:
         return
     HOST_GRIDS = GRID_FTFREQ_ARRAYS = 0
@@ -161,6 +180,7 @@ def enable_spans() -> None:
     MC_KERNEL_ROWS = MC_PLAIN_ROWS = 0
     MC_NULLS = MC_NULL_MEMBERS = MC_NULL_CHUNKS = 0
     MC_HIST_KERNEL_CELLS = MC_HIST_PLAIN_CELLS = 0
+    OVERLAP_CHUNKS = OVERLAP_POINTS = OVERLAP_INTERIOR_POINTS = 0
     _stack.clear()
     _totals.clear()
     _profiled.clear()
