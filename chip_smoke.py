@@ -133,6 +133,7 @@ KERNEL_SOURCE = "pycwt_torch/csrc/fused_cwt.cu"
 DIRECT_SOURCE = "pycwt_torch/csrc/direct_cwt.cu"
 MC_SOURCE = "pycwt_torch/csrc/mc_noise.cu"
 MC_HIST_SOURCE = "pycwt_torch/csrc/mc_hist.cu"
+WCT_HEAD_SOURCE = "pycwt_torch/csrc/wct_head.cu"
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
 #: f32 bounds of the slice's path against the f64 goldens (rel_err):
 #: tests/test_tpu_chip.py:43, tests/test_engines.py:170, :156
@@ -1417,7 +1418,7 @@ def phase_mc_significance():
     from pycwt_torch.analysis import wct_analysis
     from pycwt_torch.config import CWTConfig
     from pycwt_torch.ops import fused_cwt as fc
-    from pycwt_torch.ops import mc_hist, mc_noise
+    from pycwt_torch.ops import mc_hist, mc_noise, wct_head
     from pycwt_torch.ops.mxu_dft import fft_of_real_planar
     from pycwt_torch.sample import load
     from pycwt_torch.utils import profiling
@@ -1441,13 +1442,18 @@ def phase_mc_significance():
                 for k in mc_noise.LAUNCHES:
                     mc_noise.LAUNCHES[k] = 0
                 mc_hist.LAUNCHES["mc_coherence_counts"] = 0
+                wct_head.LAUNCHES["wct_fields_head"] = 0
                 profiling.MC_HIST_KERNEL_CELLS = profiling.MC_HIST_PLAIN_CELLS = 0
+                profiling.WCT_HEAD_KERNEL_POINTS = profiling.WCT_HEAD_PLAIN_POINTS = 0
                 sig95 = tco.wct_significance(al1, al2, **mc)
                 torch.cuda.synchronize()
                 r["launches"] = dict(fc.KERNEL_LAUNCHES)
                 r["mc_launches"] = dict(mc_noise.LAUNCHES)
                 r["hist_launches"] = mc_hist.LAUNCHES["mc_coherence_counts"]
                 r["hist_cells"] = (profiling.MC_HIST_KERNEL_CELLS, profiling.MC_HIST_PLAIN_CELLS)
+                r["head_launches"] = wct_head.LAUNCHES["wct_fields_head"]
+                r["head_points"] = (profiling.WCT_HEAD_KERNEL_POINTS,
+                                    profiling.WCT_HEAD_PLAIN_POINTS)
                 chunks = r["chunks"] = -(-MC_COUNT // auto)
                 check(r["mc_launches"] == {"mc_fold_in": chunks, "mc_rednoise": 2 * chunks},
                       f"MC {name}: generator launches {r['mc_launches']} for {chunks} "
@@ -1456,6 +1462,10 @@ def phase_mc_significance():
                       and r["hist_cells"] == (MC_COUNT * S * n, 0),
                       f"MC {name}: {r['hist_launches']} mc_coherence_counts launches for "
                       f"{chunks} chunks, points (kernel, torch tail) {r['hist_cells']}")
+                check(r["head_launches"] == chunks
+                      and r["head_points"] == (MC_COUNT * S * n, 0),
+                      f"MC {name}: {r['head_launches']} wct_fields_head launches for "
+                      f"{chunks} chunks, points (kernel, torch head) {r['head_points']}")
                 r["bands"] = _mc_bands(sig95, ref, f"MC {name}")
                 want = (("cwt_direct",) if small else ("cwt_stage_a", "cwt_stage_b"))
                 check(all(r["launches"][k] > 0 for k in want)
@@ -1517,7 +1527,9 @@ def phase_mc_significance():
             log(f"MC {name}: auto mc_batch {auto}, peak {r['peak_per_member']:.4e} bytes a member, "
                 f"launches {r['launches']}, generator launches {r['mc_launches']}, "
                 f"mc_coherence_counts launches {r['hist_launches']} for {r['chunks']} chunks, "
-                f"points binned (kernel, torch tail) {r['hist_cells']}, bands max {r['bands'][0]:.4f} mean "
+                f"points binned (kernel, torch tail) {r['hist_cells']}, wct_fields_head "
+                f"launches {r['head_launches']}, points (kernel, torch head) "
+                f"{r['head_points']}, bands max {r['bands'][0]:.4f} mean "
                 f"{r['bands'][1]:.4f}, chunk transform vs plain {r['chunk_err']:.3e} of "
                 f"max|W|; R2 rows, curves and histograms at mc_batch {auto}/64/7 "
                 f"bit-identical; no host sync in a run of chunks")
@@ -1565,8 +1577,10 @@ def phase_mc_significance():
         bkw = dict(alpha_quant=0, **mc)
         _reset_counts()
         mc_hist.LAUNCHES["mc_coherence_counts"] = 0
-        profiling.MC_NULL_CHUNKS = 0
+        wct_head.LAUNCHES["wct_fields_head"] = 0
+        profiling.MC_NULL_CHUNKS = profiling.MC_NULL_MEMBERS = 0
         profiling.MC_HIST_KERNEL_CELLS = profiling.MC_HIST_PLAIN_CELLS = 0
+        profiling.WCT_HEAD_KERNEL_POINTS = profiling.WCT_HEAD_PLAIN_POINTS = 0
         curves = [tco.wct_significance_batch(a1, a2, pair_block=pb, **bkw) for pb in (8, 3)]
         torch.cuda.synchronize()
         blaunch = dict(fc.KERNEL_LAUNCHES)
@@ -1574,13 +1588,23 @@ def phase_mc_significance():
         out["batch_hist"] = dict(launches=mc_hist.LAUNCHES["mc_coherence_counts"],
                                  chunks=profiling.MC_NULL_CHUNKS,
                                  cells=(profiling.MC_HIST_KERNEL_CELLS,
-                                        profiling.MC_HIST_PLAIN_CELLS))
+                                        profiling.MC_HIST_PLAIN_CELLS),
+                                 members=profiling.MC_NULL_MEMBERS,
+                                 head_launches=wct_head.LAUNCHES["wct_fields_head"],
+                                 head_points=(profiling.WCT_HEAD_KERNEL_POINTS,
+                                              profiling.WCT_HEAD_PLAIN_POINTS))
         bh = out["batch_hist"]
         check(bh["chunks"] > 0 and bh["launches"] == bh["chunks"]
               and bh["cells"] == (sum(-(-len(a1) // pb) * pb for pb in (8, 3))
                                   * MC_COUNT * S * n, 0),
               f"wct_significance_batch: {bh['launches']} mc_coherence_counts launches for "
               f"{bh['chunks']} chunks, points (kernel, torch tail) {bh['cells']}")
+        # the head runs on every member a chunk draws, the last chunk's
+        # overdrawn ones too, which the counts leave out
+        check(bh["head_launches"] == bh["chunks"]
+              and bh["head_points"] == (bh["members"] * S * n, 0),
+              f"wct_significance_batch: {bh['head_launches']} wct_fields_head launches for "
+              f"{bh['chunks']} chunks, points (kernel, torch head) {bh['head_points']}")
         check(curves[0].shape == (8, kw["J"] + 1)
               and np.array_equal(np.nan_to_num(curves[0], nan=-1.0),
                                  np.nan_to_num(curves[1], nan=-1.0)),
@@ -1815,6 +1839,70 @@ def phase_mc_histogram(card, calls=10):
     return out
 
 
+#: the coherence head's shapes: a wct_matrix_mc_32st chunk (405 member
+#: pairs of 110 scales, 6302 samples trimmed from rows of 8192, no cross
+#: planes) and an overlap_16m chunk (64 scales of 2^19, whole rows, the
+#: cross planes kept)
+WCT_HEAD_SHAPES = {"wct_matrix_mc_32st": ((405,), 110, 6302, 8192, False),
+                   "overlap_16m": ((), 64, 1 << 19, 1 << 19, True)}
+
+
+def phase_wct_head(card, calls=10):
+    """The coherence head at both shapes: ``wct_fields_head`` against the
+    torch head it replaces (18 element-wise launches), in turns (kernel,
+    torch, torch, kernel), on random planes; the fields (and cross planes)
+    bit for bit; device ms a call (torch.profiler over ``calls`` calls),
+    launches a call, and the kernel's bound by bytes: 32 a point (the four
+    planes read, the two complex64 fields written), 40 with the cross
+    planes, at 3.35 TB/s."""
+    from pycwt_torch import coherence as tco
+    from pycwt_torch.ops import wct_head
+
+    out = {"card": card, "shapes": {}}
+    for cell, (lead, S, n, pitch, cross) in WCT_HEAD_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(S + n)
+        full = torch.randn((4, *lead, S, pitch), generator=g, device="cuda")[..., :n]
+        w1, w2 = (full[0], full[1]), (full[2], full[3])
+        sc = torch.linspace(0.5, 1600.0, S, device="cuda")
+        roads = {"kernel": lambda: wct_head.fields_head(*w1, *w2, sc, cross=cross),
+                 "torch": lambda: tco._torch_head(w1, w2, sc, cross=cross)}
+        got, want = roads["kernel"](), roads["torch"]()
+        pairs = list(zip(got[:2], want[:2])) + (list(zip(got[2], want[2])) if cross else [])
+        same = all(torch.equal(torch.view_as_real(a) if a.is_complex() else a,
+                               torch.view_as_real(b) if b.is_complex() else b)
+                   for a, b in pairs)
+        check(same, f"coherence head at {cell}'s chunk: the kernel's fields differ from the "
+                    "torch head's")
+        del got, want, pairs
+        points = math.prod(lead) * S * n
+        nbytes = (40 if cross else 32) * points
+        bound = nbytes / PEAK_BYTES * 1e3
+        r = {"shape": [*lead, S, n], "pitch": pitch, "cross": cross, "points": points,
+             "bound_ms": bound, "bound_bytes": nbytes, "bit_for_bit": same}
+        for road in ("kernel", "torch", "torch", "kernel"):
+            before = wct_head.LAUNCHES["wct_fields_head"]
+            roads[road]()
+            launches = wct_head.LAUNCHES["wct_fields_head"] - before
+            d = r.setdefault(road, {"device_ms": [], "kernel_launches_per_call": launches})
+            d["device_ms"].append(device_ms(roads[road], calls=calls, floor=bound))
+        for road in roads:
+            r[road]["device_ms_median"] = float(np.median(r[road]["device_ms"]))
+            r[road]["bound_share"] = bound / r[road]["device_ms_median"]
+        check(r["kernel"]["kernel_launches_per_call"] == 1
+              and r["torch"]["kernel_launches_per_call"] == 0,
+              f"coherence head at {cell}'s chunk: launches {r}")
+        out["shapes"][cell] = r
+        log(f"coherence head at {cell}'s chunk {r['shape']} (pitch {pitch}, cross {cross}): "
+            f"device ms a call, in turns, kernel {r['kernel']['device_ms']}, torch head "
+            f"{r['torch']['device_ms']}; bound {bound:.5f} ms by bytes ({nbytes} bytes, "
+            f"{100 * r['kernel']['bound_share']:.2f} % of it; torch head "
+            f"{100 * r['torch']['bound_share']:.2f} %); fields bit for bit")
+        del full, w1, w2, roads
+        torch.cuda.empty_cache()
+    log(json.dumps({"wct_head": out}))
+    return out
+
+
 def phase_mc_trace():
     """``--trace``: torch.profiler over one 300-member wct_significance run on
     each route (after a warm-up): the device's busy time, its share of the
@@ -2002,7 +2090,9 @@ def phase_pairs(card):
     from pycwt_torch.analysis import wct_matrix_analysis
     from pycwt_torch.config import CWTConfig
     from pycwt_torch.ops import fused_cwt as fc
+    from pycwt_torch.ops import wct_head
     from pycwt_torch.ops.mxu_dft import fft_of_real_planar
+    from pycwt_torch.utils import profiling
     from pycwt_torch.transform import build_scale_grid
 
     y = _stations()
@@ -2117,12 +2207,16 @@ def phase_pairs(card):
         runs = {}
         for kind in ("cold", "warm"):
             _reset_counts()
+            wct_head.LAUNCHES["wct_fields_head"] = 0
+            profiling.MC_NULL_CHUNKS = 0
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             ms, res = _events_ms(lambda: wct_matrix_analysis(y, dt=dt, mc_count=PAIRS_MC))
             runs[kind] = dict(ms=ms, launches=dict(fc.KERNEL_LAUNCHES), res=res,
-                              peak=torch.cuda.max_memory_allocated() - base)
+                              peak=torch.cuda.max_memory_allocated() - base,
+                              head_launches=wct_head.LAUNCHES["wct_fields_head"],
+                              null_chunks=profiling.MC_NULL_CHUNKS)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
         if old_cache is None:
@@ -2152,6 +2246,12 @@ def phase_pairs(card):
           and runs["warm"]["launches"]["cwt_stage_a"] == 1,
           f"wct_matrix_analysis launches: cold {runs['cold']['launches']}, warm "
           f"{runs['warm']['launches']}")
+    # the maps' pair block builds its own cross spectrum: one head a null chunk
+    check(runs["cold"]["head_launches"] == runs["cold"]["null_chunks"] > 0
+          and runs["warm"]["head_launches"] == runs["warm"]["null_chunks"],
+          "wct_matrix_analysis wct_fields_head launches (cold, warm) "
+          f"{runs['cold']['head_launches']}, {runs['warm']['head_launches']} for null chunks "
+          f"{runs['cold']['null_chunks']}, {runs['warm']['null_chunks']}")
     n, _, _, _, _ = tco._surrogate_grid(dt, 1 / 12, 2 * dt / pt.Morlet(6).flambda(), S - 1,
                                         pt.Morlet(6))
     nfft_mc = 1 << (n - 1).bit_length()
@@ -2178,7 +2278,9 @@ def phase_pairs(card):
     check(np.array_equal(ok, np.isfinite(on_card)) and out["null_vs_cpu_f64"] <= 1e-5,
           f"null ({g[i]:.4f}, {g[j]:.4f}) card vs CPU f64: {out['null_vs_cpu_f64']}")
     for kind, r in runs.items():
-        out[f"analysis_{kind}"] = dict(ms=r["ms"], launches=r["launches"], peak=r["peak"])
+        out[f"analysis_{kind}"] = dict(ms=r["ms"], launches=r["launches"], peak=r["peak"],
+                                       head_launches=r["head_launches"],
+                                       null_chunks=r["null_chunks"])
     per_null = runs["cold"]["launches"]["cwt_stage_a"] - 1
     log(f"[{card}] 32-station wct_matrix (496 pairs, S {S}, nfft {nfft}): default "
         f"{out['routes']['default']['ms']:.4f} ms ({out['routes']['default']['ms_unfetched']:.4f} "
@@ -2195,7 +2297,10 @@ def phase_pairs(card):
         f"(n {n}, nfft {nfft_mc}, {rows} rows a chunk; {out['cache_entries']} cache entries "
         f"for the {P} pairs); launches cold "
         f"{runs['cold']['launches']} ({per_null} K1 launches for the nulls), warm "
-        f"{runs['warm']['launches']}; peak {runs['cold']['peak']:.4e} / "
+        f"{runs['warm']['launches']}; wct_fields_head launches cold "
+        f"{runs['cold']['head_launches']} for {runs['cold']['null_chunks']} null chunks, warm "
+        f"{runs['warm']['head_launches']} for {runs['warm']['null_chunks']}; peak "
+        f"{runs['cold']['peak']:.4e} / "
         f"{runs['warm']['peak']:.4e} bytes; one null ({NULL_CHECK_MC} members) card vs CPU "
         f"f64 {out['null_vs_cpu_f64']:.3e}")
     return out
@@ -2241,6 +2346,7 @@ def phase_long(card):
     from pycwt_torch.coherence import _wct_core_planar
     from pycwt_torch.ops import fused_cwt as fc
     from pycwt_torch.ops import overlap as tov
+    from pycwt_torch.ops import wct_head
     from pycwt_torch.ops.mxu_dft import fft_of_real_planar
 
     mother = pt.Morlet(6)
@@ -2339,14 +2445,19 @@ def phase_long(card):
     out["surfaces"] = {}
     for name, (signals, fn) in surfaces.items():
         _reset_counts()
+        wct_head.LAUNCHES["wct_fields_head"] = 0
         peak, res = _peak_bytes(fn)
         launches = dict(fc.KERNEL_LAUNCHES)
+        heads = wct_head.LAUNCHES["wct_fields_head"]
         outs = res if isinstance(res, tuple) else (res,)
         out_bytes = sum(t.untyped_storage().nbytes() for t in outs)
         check(all(bool(torch.isfinite(t).all()) for t in outs), f"{name} at 2^24: not finite")
         del res, outs
         check(launches["cwt_stage_a"] == launches["cwt_stage_b"] == signals * n_chunks
               and launches["cwt_direct"] == 0, f"{name} at 2^24: launches {launches}")
+        # the coherence head: one launch a chunk, in the coherence alone
+        check(heads == (n_chunks if name == "wct_overlap_planar" else 0),
+              f"{name} at 2^24: {heads} wct_fields_head launches for {n_chunks} chunks")
         times = []
         for _ in range(3):
             ms, res = _events_ms(fn)
@@ -2355,10 +2466,11 @@ def phase_long(card):
         ms = float(np.median(times))
         out["surfaces"][name] = dict(ms=ms, ms_runs=times, rate=N * LONG_S / (ms * 1e-3),
                                      launches=launches["cwt_stage_a"], peak=peak,
-                                     output_bytes=out_bytes)
+                                     output_bytes=out_bytes, head_launches=heads)
         log(f"[{card}] {name} at N = 2^24, 64 scales: {ms:.2f} ms (CUDA events, median of "
             f"3: {[round(t, 2) for t in times]}), {N * LONG_S / (ms * 1e-3):.4e} sample-scales/s, "
-            f"K1/K2 launches {launches['cwt_stage_a']} each ({n_chunks} chunks), peak "
+            f"K1/K2 launches {launches['cwt_stage_a']} each ({n_chunks} chunks), "
+            f"wct_fields_head launches {heads}, peak "
             f"{peak:.4e} bytes = output {out_bytes:.4e} + {peak - out_bytes:.4e}")
     return out
 
@@ -3375,6 +3487,7 @@ def main():
     mc = phase_mc_significance()
     mc_generator = phase_mc_generator(card)
     mc_histogram = phase_mc_histogram(card)
+    wct_head = phase_wct_head(card)
     pairs = phase_pairs(card)
     dog = phase_dog_repair(card)
     long = phase_long(card)
@@ -3523,6 +3636,34 @@ def main():
             plain_call="the torch tail: the ratio, _histogram's passes and scatter_add_, acc +=",
             bound_ms=r["bound_ms"], bound_by="bytes", bound_share=r["kernel"]["bound_share"],
             bound_bytes=r["bound_bytes"], shape=r["shape"], card=card))
+    for cell, r in wct_head["shapes"].items():
+        kernels.append(dict(
+            name=f"wct_fields_head ({cell})", route="cuda", source=WCT_HEAD_SOURCE,
+            replaces="none: pycwt_tpu builds the fields with jnp ops under jit, which XLA fuses",
+            tpu_kernel="none", max_abs_err=0.0,
+            tolerance="bit for bit: torch.equal with the torch head's fields on the card",
+            launches={route: rr["head_launches"] for route, rr in mc["routes"].items()},
+            chunks={route: rr["chunks"] for route, rr in mc["routes"].items()},
+            launches_batch=mc["batch_hist"]["head_launches"],
+            chunks_batch=mc["batch_hist"]["chunks"],
+            launches_analysis={kind: pairs[f"analysis_{kind}"]["head_launches"]
+                               for kind in ("cold", "warm")},
+            null_chunks_analysis={kind: pairs[f"analysis_{kind}"]["null_chunks"]
+                                  for kind in ("cold", "warm")},
+            launches_overlap=long["surfaces"]["wct_overlap_planar"]["head_launches"],
+            chunks_overlap=LONG_TIME_N // LONG_CHUNK,
+            launches_by="the main paths, counted from 0 around each run: wct_significance "
+                        "(300 members, each route), wct_significance_batch (8 nulls at "
+                        "pair_block 8 and 3), wct_matrix_analysis cold and warm, "
+                        "wct_overlap_planar at 2^24; one launch a chunk",
+            ms=r["kernel"]["device_ms_median"],
+            ms_by="torch.profiler device time per call on random planes",
+            plain_ms=r["torch"]["device_ms_median"],
+            plain_call="the torch head: 18 element-wise launches (squares, sums, the cross "
+                       "product, the divisions, two torch.complex)",
+            bound_ms=r["bound_ms"], bound_by="bytes", bound_share=r["kernel"]["bound_share"],
+            bound_bytes=r["bound_bytes"], shape=r["shape"], cross_planes=r["cross"],
+            card=card))
     jax_shape = relayout["shapes"]["2^20x64"]
     variants = [r for sh in relayout["shapes"].values() for r in sh["variants"].values()]
     kernels.append(dict(
@@ -3568,7 +3709,7 @@ def main():
                     "mc_auto_batch": mc["auto_batch"], "mc_generator_ms": mc["generator_ms"],
                     "mc_batch_8_nulls_ms": mc["batch_ms"],
                     "mc_generator": mc_generator,
-                    "mc_histogram": mc_histogram,
+                    "mc_histogram": mc_histogram, "wct_head": wct_head,
                     "mc_vs_cpu_f64_max_abs": mc["vs_cpu_f64"],
                     "wct_matrix_32_stations_ms": {
                         k: r["ms"] for k, r in pairs["routes"].items()},
@@ -3638,6 +3779,10 @@ if __name__ == "__main__":
         card = phase_device()
         phase_build()
         phase_mc_histogram(card)
+    elif sys.argv[1:] == ["--wct-head"]:
+        card = phase_device()
+        phase_build()
+        phase_wct_head(card)
     elif sys.argv[1:] == ["--stage-b-complex"]:
         card = phase_device()
         usage = phase_build()

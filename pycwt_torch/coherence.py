@@ -18,7 +18,9 @@ raise and name ``device="cpu"``; each builds its grid in
 the card) the WCT runs :func:`_wct_core_planar`: the rows reach the CUDA
 kernels through ``ops/fused_cwt._planar_cwt_of_real`` (``cwt_direct`` for
 nfft ≤ 2^12 under ``PYCWT_TPU_SMALL_KERNEL=1``), and
-:func:`_planar_coherence`, shared with ``ops/overlap.py``, smooths them.
+:func:`_planar_coherence`, shared with ``ops/overlap.py``, smooths them;
+on the card one ``wct_fields_head`` launch (``ops/wct_head.py``) builds
+the fields that the smoothing takes from the W planes.
 
 The Monte-Carlo significance draws its AR(1) surrogates from ``jax.random``'s
 own threefry streams (``stats.rednoise_members*``), so for one seed the port
@@ -43,7 +45,7 @@ import torch
 
 from .config import CWTConfig, DEFAULT
 from .mothers import Mother, as_mother
-from .ops import mc_hist
+from .ops import mc_hist, wct_head
 from .ops.fft import _planar_route, resolve_engine
 from .ops.smoothing import smooth, smooth_planar_pair
 from .stats import (PRNGKey, _burn_in, ar1, ar1_batch, ar1_spectrum,
@@ -153,24 +155,50 @@ def _cross(w1, w2):
     return w1r * w2r + w1i * w2i, w1i * w2r - w1r * w2i
 
 
-def _planar_fields(w1, w2, scales, *, dt: float, dj: float, mother: Mother):
+def _torch_head(w1, w2, scales, *, cross: bool = True):
+    """The coherence head in torch ops, ``wct_fields_head``'s plain version
+    (``ops/wct_head.py``): the scale-normalized auto-spectra packed as ``S =
+    |W1|²/s + i·|W2|²/s``, the cross spectrum as ``C = W12r/s + i·W12i/s``,
+    and the cross planes ``(W12r, W12i)`` where ``cross``, else None."""
+    (w1r, w1i), (w2r, w2i) = w1, w2
+    s_col = scales[:, None]
+    S = torch.complex((w1r ** 2 + w1i ** 2) / s_col, (w2r ** 2 + w2i ** 2) / s_col)
+    w12r, w12i = _cross(w1, w2)
+    C = torch.complex(w12r / s_col, w12i / s_col)
+    profiling.WCT_HEAD_PLAIN_POINTS += w1r.numel()
+    return S, C, ((w12r, w12i) if cross else None)
+
+
+def _head_on_card(w1, w2, scales) -> bool:
+    """Whether the head runs in ``wct_fields_head``: f32 planes and scales
+    on a CUDA device, of which no gradient is asked."""
+    ts = (*w1, *w2, scales)
+    return (wct_head.on_card(ts[0]) and all(t.dtype == torch.float32 for t in ts)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in ts)))
+
+
+def _planar_fields(w1, w2, scales, *, dt: float, dj: float, mother: Mother,
+                   cross: bool = True):
     """The smoothed fields of the coherence of two planar transforms ``(wr,
     wi)``, each ``(..., S, n)`` f32 over ``scales`` ``(S,)``: the
     scale-normalized auto-spectra packed as ``S1 + i·S2`` and the cross
     spectrum ``W12r + i·W12i``, each smoothed in one complex pass (as
     ``smooth_planar_pair`` does, whose planes are their real and imaginary
-    views).
+    views).  The head before the smoothing is one ``wct_fields_head``
+    launch (``ops/wct_head.py``) where :func:`_head_on_card`, else
+    :func:`_torch_head`: the same fields, bit for bit.
 
     Returns ``(S, C, (W12r, W12i))``: ``S = S1 + i·S2`` and ``C = S12r +
-    i·S12i``, complex ``(..., S, n)``.
+    i·S12i``, complex ``(..., S, n)``; the cross planes are None unless
+    ``cross``.
     """
-    (w1r, w1i), (w2r, w2i) = w1, w2
-    s_col = scales[:, None]
-    Sm = smooth(torch.complex((w1r ** 2 + w1i ** 2) / s_col,
-                              (w2r ** 2 + w2i ** 2) / s_col), dt, dj, scales, mother)
-    w12r, w12i = _cross(w1, w2)
-    Cm = smooth(torch.complex(w12r / s_col, w12i / s_col), dt, dj, scales, mother)
-    return Sm, Cm, (w12r, w12i)
+    if _head_on_card(w1, w2, scales):
+        S, C, w12 = wct_head.fields_head(*w1, *w2, scales, cross=cross)
+    else:
+        S, C, w12 = _torch_head(w1, w2, scales, cross=cross)
+    Sm = smooth(S, dt, dj, scales, mother)
+    del S  # freed before the second smoothing allocates its workspace
+    return Sm, smooth(C, dt, dj, scales, mother), w12
 
 
 def _coherence_ratio(Sm, Cm):
@@ -683,7 +711,8 @@ def _mc_counts(acc, noise1, noise2, scales, outsidecoi, dt, *, valid: int,
     if planar:
         with span("wct.core"):
             w1, w2, sj = _planar_ws(y1, y2, scales, dt, mother=mother, nfft=nfft)
-            Sm, Cm, _ = _planar_fields(w1, w2, sj, dt=dt, dj=dj, mother=mother)
+            Sm, Cm, _ = _planar_fields(w1, w2, sj, dt=dt, dj=dj, mother=mother,
+                                       cross=False)
     else:
         R2, _, _ = _wct_core(y1, y2, scales, dt, mother=mother, nfft=nfft,
                              dj=dj, engine=engine)

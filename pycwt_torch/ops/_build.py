@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 #: library name -> its CUDA source in csrc/
 SOURCES = {"fused_cwt": "fused_cwt.cu", "direct_cwt": "direct_cwt.cu",
-           "mc_noise": "mc_noise.cu", "mc_hist": "mc_hist.cu"}
+           "mc_noise": "mc_noise.cu", "mc_hist": "mc_hist.cu", "wct_head": "wct_head.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -61,6 +61,10 @@ _SIGNATURES = {
     },
     "mc_hist": {
         "mc_coherence_counts": ([_V, _V, _V, _V, _LL, _I, _I, _I, _I, _V], _I),
+    },
+    "wct_head": {
+        "wct_fields_head": ([_V, _V, _V, _V, _V, _V, _V, _V, _V, _LL, _I, _I, _LL, _LL, _LL,
+                             _V], _I),
     },
 }
 

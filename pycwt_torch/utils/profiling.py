@@ -82,11 +82,13 @@ surrogate rows drawn on the card by the generator kernel
 for them and the chunks it ran, and :data:`MC_HIST_KERNEL_CELLS` and
 :data:`MC_HIST_PLAIN_CELLS` the points of the Monte-Carlo chunks' fields
 binned by the counts kernel (``ops/mc_hist.py``) and by the torch path,
-and :data:`OVERLAP_CHUNKS`, :data:`OVERLAP_POINTS` and
-:data:`OVERLAP_INTERIOR_POINTS` the chunks that ``ops.overlap``'s
+:data:`WCT_HEAD_KERNEL_POINTS` and :data:`WCT_HEAD_PLAIN_POINTS` the
+points of the coherence fields made by the head kernel
+(``ops/wct_head.py``) and by the torch head, and :data:`OVERLAP_CHUNKS`,
+:data:`OVERLAP_POINTS` and :data:`OVERLAP_INTERIOR_POINTS` the chunks that ``ops.overlap``'s
 single-device surfaces ran, the points they transformed and those they
 kept, whether the recorder is on or off; :func:`enable_spans` sets all
-seventeen back to 0.
+nineteen back to 0.
 """
 from __future__ import annotations
 
@@ -155,6 +157,11 @@ MC_NULL_CHUNKS = 0
 #: alike
 MC_HIST_KERNEL_CELLS = 0
 MC_HIST_PLAIN_CELLS = 0
+#: points (row × scale × time) of the coherence fields that
+#: ``coherence._planar_fields`` made by ``wct_fields_head``, and by the
+#: torch head (the CPU, f64, autograd), counted alike
+WCT_HEAD_KERNEL_POINTS = 0
+WCT_HEAD_PLAIN_POINTS = 0
 #: chunks that ``ops.overlap``'s single-device surfaces ran, S × nfft_c
 #: points transformed for each chunk and signal, and S × the interior
 #: samples kept for each (the last chunk's zero tail left out), counted
@@ -172,6 +179,7 @@ def enable_spans() -> None:
     global MC_KERNEL_ROWS, MC_PLAIN_ROWS, MC_NULLS, MC_NULL_MEMBERS, MC_NULL_CHUNKS
     global MC_HIST_KERNEL_CELLS, MC_HIST_PLAIN_CELLS, HOST_GRIDS, GRID_FTFREQ_ARRAYS
     global OVERLAP_CHUNKS, OVERLAP_POINTS, OVERLAP_INTERIOR_POINTS
+    global WCT_HEAD_KERNEL_POINTS, WCT_HEAD_PLAIN_POINTS
     if _on:
         return
     HOST_GRIDS = GRID_FTFREQ_ARRAYS = 0
@@ -180,6 +188,7 @@ def enable_spans() -> None:
     MC_KERNEL_ROWS = MC_PLAIN_ROWS = 0
     MC_NULLS = MC_NULL_MEMBERS = MC_NULL_CHUNKS = 0
     MC_HIST_KERNEL_CELLS = MC_HIST_PLAIN_CELLS = 0
+    WCT_HEAD_KERNEL_POINTS = WCT_HEAD_PLAIN_POINTS = 0
     OVERLAP_CHUNKS = OVERLAP_POINTS = OVERLAP_INTERIOR_POINTS = 0
     _stack.clear()
     _totals.clear()
