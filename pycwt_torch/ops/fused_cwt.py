@@ -19,7 +19,8 @@ intermediate T.  ``fast`` stores T in bf16, as ``pycwt_tpu`` does at its
 fast tier (``pallas_fft.py:699-705``): stage A rounds T to nearest even and
 stage B widens it back to f32, which halves T's round trip through device
 memory.  The bf16 forms are the entries ``cwt_stage_a_bf16`` and
-``cwt_stage_b_bf16``, counted apart in :data:`KERNEL_LAUNCHES`.
+``cwt_stage_b_bf16``, counted apart in :data:`KERNEL_LAUNCHES`; T's points
+are counted by type in ``profiling.T_BF16_POINTS`` and ``T_F32_POINTS``.
 
 Epilogues (``output``).  ``cwt_stage_b`` ends in W planes (``"planes"``),
 complex64 W (``"complex"``: one interleaved store a point, the layout of a
@@ -64,6 +65,7 @@ import torch
 
 from ..config import _PRECISIONS
 from ..mothers import DOG, Morlet, Mother, Paul
+from ..utils import profiling
 from ..utils.profiling import span
 from ._precision import full_f32_matmul
 from .fft import _spectrum_f64
@@ -504,19 +506,29 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
+def _count_t(points: int, bf16: bool) -> None:
+    if bf16:
+        profiling.T_BF16_POINTS += points
+    else:
+        profiling.T_F32_POINTS += points
+
+
 def stage_a(sr, si, scales, *, mother: Mother, nfft: int, dt: float,
             t_dtype=torch.float32):
     """Kernel A: ``(B, n_in)`` planar spectra and ``(S,)`` scales → planar T
     ``(B·S, R1, R2)`` of ``t_dtype``: f32 (``cwt_stage_a``) or bf16 rounded
     to nearest even (``cwt_stage_a_bf16``); any other type raises
     ``ValueError``.  CPU tensors run :func:`_stage_a_reference` (an f32 T
-    there keeps the inputs' dtype)."""
+    there keeps the inputs' dtype).  T's points are counted in
+    ``profiling.T_BF16_POINTS`` or ``T_F32_POINTS``."""
     if t_dtype not in _T_DTYPES:
         raise ValueError(f"T must be float32 or bfloat16, got {t_dtype}")
     bf16 = t_dtype == torch.bfloat16
     if _check_device(sr) == "cpu":
-        return _stage_a_reference(sr, si, scales, mother=mother, nfft=nfft,
-                                  dt=dt, t_dtype=t_dtype if bf16 else None)
+        T = _stage_a_reference(sr, si, scales, mother=mother, nfft=nfft,
+                               dt=dt, t_dtype=t_dtype if bf16 else None)
+        _count_t(T[0].numel(), bf16)
+        return T
     from ._build import library
 
     R1, R2 = _nfft_factors(nfft)
@@ -545,6 +557,7 @@ def stage_a(sr, si, scales, *, mother: Mother, nfft: int, dt: float,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     KERNEL_LAUNCHES[name] += 1
+    _count_t(tr.numel(), bf16)
     return tr, ti
 
 

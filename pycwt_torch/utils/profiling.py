@@ -87,8 +87,10 @@ points of the coherence fields made by the head kernel
 (``ops/wct_head.py``) and by the torch head, and :data:`OVERLAP_CHUNKS`,
 :data:`OVERLAP_POINTS` and :data:`OVERLAP_INTERIOR_POINTS` the chunks that ``ops.overlap``'s
 single-device surfaces ran, the points they transformed and those they
-kept, whether the recorder is on or off; :func:`enable_spans` sets all
-nineteen back to 0.
+kept, and :data:`T_BF16_POINTS` and :data:`T_F32_POINTS` the points of
+the intermediate T that ``ops.fused_cwt.stage_a`` wrote in bf16 (the
+``fast`` tier) and in f32, whether the recorder is on or off;
+:func:`enable_spans` sets all twenty-one back to 0.
 """
 from __future__ import annotations
 
@@ -169,6 +171,12 @@ WCT_HEAD_PLAIN_POINTS = 0
 OVERLAP_CHUNKS = 0
 OVERLAP_POINTS = 0
 OVERLAP_INTERIOR_POINTS = 0
+#: points (row × R1 × R2 a launch, B × S rows) of the intermediate T that
+#: ``ops.fused_cwt.stage_a`` wrote in bf16 (``cwt_stage_a_bf16``, the
+#: ``fast`` tier) and in f32 (``cwt_stage_a``; on the CPU the plain
+#: version's T in the inputs' dtype), counted alike
+T_BF16_POINTS = 0
+T_F32_POINTS = 0
 
 
 def enable_spans() -> None:
@@ -179,7 +187,7 @@ def enable_spans() -> None:
     global MC_KERNEL_ROWS, MC_PLAIN_ROWS, MC_NULLS, MC_NULL_MEMBERS, MC_NULL_CHUNKS
     global MC_HIST_KERNEL_CELLS, MC_HIST_PLAIN_CELLS, HOST_GRIDS, GRID_FTFREQ_ARRAYS
     global OVERLAP_CHUNKS, OVERLAP_POINTS, OVERLAP_INTERIOR_POINTS
-    global WCT_HEAD_KERNEL_POINTS, WCT_HEAD_PLAIN_POINTS
+    global WCT_HEAD_KERNEL_POINTS, WCT_HEAD_PLAIN_POINTS, T_BF16_POINTS, T_F32_POINTS
     if _on:
         return
     HOST_GRIDS = GRID_FTFREQ_ARRAYS = 0
@@ -190,6 +198,7 @@ def enable_spans() -> None:
     MC_HIST_KERNEL_CELLS = MC_HIST_PLAIN_CELLS = 0
     WCT_HEAD_KERNEL_POINTS = WCT_HEAD_PLAIN_POINTS = 0
     OVERLAP_CHUNKS = OVERLAP_POINTS = OVERLAP_INTERIOR_POINTS = 0
+    T_BF16_POINTS = T_F32_POINTS = 0
     _stack.clear()
     _totals.clear()
     _profiled.clear()

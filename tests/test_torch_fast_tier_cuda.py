@@ -149,3 +149,39 @@ def test_counters_show_each_tiers_T(cuda, pow2, tier):
     scale = float(torch.complex(rr, ri).abs().max())
     err = max(float((wr - rr).abs().max()), float((wi - ri).abs().max())) / scale
     assert err < {"highest": 1e-5, "high": 2e-4, "fast": 2e-2}[tier]
+
+
+@pytest.mark.parametrize("tier", ["high", "fast"])
+@pytest.mark.parametrize("pow2", [20, 22])
+def test_t_points_on_the_card(cuda, pow2, tier):
+    """``profiling.T_BF16_POINTS`` / ``T_F32_POINTS`` count rows × R1 × R2
+    a launch of K1 at R1 = 1024 (K2-bf16's 16-column block) and 2048 (its
+    cluster pair): the bench pipeline's ``power_sum`` and ``cwt_batch``'s
+    complex W, each by T's element type alone."""
+    from pycwt_torch.config import CWTConfig
+    from pycwt_torch.transform import cwt_batch
+    from pycwt_torch.utils import profiling
+
+    nfft = 1 << pow2
+    R1, R2 = fc._nfft_factors(nfft)
+    sr, si, sc = _inputs(nfft, True, 1, 3, cuda, seed=pow2)
+    was_on = profiling._on
+    profiling.disable_spans()
+    profiling.enable_spans()
+    try:
+        fc.fused_cwt_planar(sr, si, sc, mother=pt.Morlet(6), nfft=nfft, dt=1.0,
+                            output="power_sum", precision=tier)
+        x = torch.randn((1, nfft), device=cuda, generator=torch.Generator(cuda).manual_seed(pow2))
+        W, _ = cwt_batch(x, sc, 1.0, mother=pt.Morlet(6), nfft=nfft,
+                         config=CWTConfig(precision=tier))
+        torch.cuda.synchronize()
+        assert W.shape == (1, 3, nfft) and bool(torch.isfinite(W).all())
+        points = 2 * 3 * R1 * R2
+        fast = tier == "fast"
+        assert (profiling.T_BF16_POINTS, profiling.T_F32_POINTS) == (
+            points if fast else 0, 0 if fast else points)
+    finally:
+        profiling.disable_spans()
+        profiling.enable_spans()
+        if not was_on:
+            profiling.disable_spans()
